@@ -1,0 +1,96 @@
+"""Command-line sweep driver of the port (the JAX package's cli `run` and
+`presets` subcommands), with structured JSON results.
+
+  python -m polardecoding_tpu_torch.cli run --preset BP_1024 --snr 1.0 3.0 0.5
+  python -m polardecoding_tpu_torch.cli run --preset BP_128 --out bp128.json
+  python -m polardecoding_tpu_torch.cli presets
+
+`run` computes on the card; `--device cpu` runs the plain PyTorch versions
+instead of the CUDA kernels (slow; for checks at small sizes).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _snr_list(args):
+    if args.snr is None:
+        return None
+    if len(args.snr) == 1:
+        return [args.snr[0]]
+    start, stop = args.snr[0], args.snr[1]
+    step = args.snr[2] if len(args.snr) > 2 else 0.5
+    out, s = [], start
+    while s <= stop + 1e-9:
+        out.append(round(s, 6))
+        s += step
+    return out
+
+
+def cmd_run(args):
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.parallel.harness import run_sweep
+
+    p = preset(args.preset)
+    log = (lambda m: print(m, file=sys.stderr)) if args.verbose else None
+    results = run_sweep(
+        p,
+        batch=args.batch,
+        device=args.device,
+        snr_points=_snr_list(args),
+        error_blocks=args.error_blocks,
+        max_frames=args.max_frames,
+        seed=args.seed,
+        checkpoint_path=args.checkpoint,
+        log=log,
+    )
+    text = json.dumps([r.to_json(p.code.num_info) for r in results], indent=1)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(text)
+    print(text)
+
+
+def cmd_presets(args):
+    from polardecoding_tpu_torch.configs import PRESETS
+
+    for name, p in sorted(PRESETS.items()):
+        c, d = p.code, p.decoder
+        extra = f" L={d.list_size}" if d.kind in ("scl", "cascl") else ""
+        crc = f" crc={c.crc_style[:4]}-{c.r}" if c.crc else ""
+        print(
+            f"{name:22s} N={c.N:5d} K={c.K:4d} {c.graph:3s} {d.kind}{extra}{crc}"
+            f"  <- {p.source}"
+        )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(prog="polardecoding_tpu_torch")
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    rp = sub.add_parser("run", help="Monte-Carlo BLER sweep")
+    rp.add_argument("--preset", required=True)
+    rp.add_argument("--batch", type=int, default=None)
+    rp.add_argument("--snr", type=float, nargs="*", default=None,
+                    metavar="START [STOP [STEP]]")
+    rp.add_argument("--error-blocks", type=int, default=None)
+    rp.add_argument("--max-frames", type=int, default=None)
+    rp.add_argument("--seed", type=int, default=None)
+    rp.add_argument("--checkpoint", default=None)
+    rp.add_argument("--out", default=None)
+    rp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions")
+    rp.add_argument("-v", "--verbose", action="store_true")
+    rp.set_defaults(fn=cmd_run)
+
+    ps = sub.add_parser("presets", help="list named presets")
+    ps.set_defaults(fn=cmd_presets)
+
+    args = ap.parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,90 @@
+"""BPSK modulation + AWGN channel + channel LLR, batched (torch port of
+polardecoding_tpu.ops.channel), with the port's random generator.
+
+Reference semantics (SC_128.c:164-167, 192-202, 416-420):
+  - sigma = 10^(-EbN0_dB / 20)
+  - BPSK maps bit 0 -> +1, bit 1 -> -1
+  - y = s + n,  n ~ N(0, sigma^2)
+  - channel LLR  L_ch = 2 y / sigma^2
+
+The generator reproduces jax.random for the threefry2x32 implementation in
+partitionable mode: `prng_key` is jax.random.PRNGKey, `fold_in` is
+jax.random.fold_in, `random_bits` is jax.random.bits for uint32 and
+`normal` is jax.random.normal for float32.  Keys and bits are bit-equal to
+JAX's, and so are the normals and the LLRs of the frame step
+(ops/noise.py).  A key is an int64 tensor [..., 2] of two 32-bit words, so
+per-frame keys are a pure function of (seed, frame index) and a batch of
+them is one tensor.
+"""
+from __future__ import annotations
+
+import torch
+
+from polardecoding_tpu_torch.ops.noise import (
+    MASK32,
+    SQRT2,
+    erfinv_f32,
+    fma,
+    normal_from_bits,
+    threefry2x32,
+    uniform_jax,
+)
+
+
+def sigma_from_ebn0_db(ebn0_db) -> float:
+    return 10.0 ** (ebn0_db / -20.0)
+
+
+def prng_key(seed: int, device=None) -> torch.Tensor:
+    """jax.random.PRNGKey(seed): the words (seed >> 32, seed & 0xFFFFFFFF)."""
+    return torch.tensor([(seed >> 32) & MASK32, seed & MASK32],
+                        dtype=torch.int64, device=device)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """jax.random.fold_in: the threefry hash of the counter (0, data) under
+    `key`.  key [2] with data an int or int64 tensor [B] gives [B, 2] (or
+    [2] for an int)."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=key.device) & MASK32
+    y0, y1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(data), data)
+    return torch.stack((y0, y1), dim=-1)
+
+
+def frame_keys(seed_key: torch.Tensor, frame_index: torch.Tensor) -> torch.Tensor:
+    """Per-frame keys: fold the global frame index into the sweep-point key."""
+    return fold_in(seed_key, frame_index)
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.bits(key, (n,), uint32) for each key of keys [..., 2]:
+    threefry of the counters (0, j) for j < n, the two output words xored.
+    Returns int64 [..., n] holding 32-bit words."""
+    j = torch.arange(n, dtype=torch.int64, device=keys.device)
+    y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(j), j)
+    return y0 ^ y1
+
+
+def normal(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """jax.random.normal(key, (n,), float32) for each key of keys [..., 2]."""
+    return normal_from_bits(random_bits(keys, n))
+
+
+def bpsk(x: torch.Tensor) -> torch.Tensor:
+    """0 -> +1, 1 -> -1."""
+    return 1.0 - 2.0 * x.to(torch.float32)
+
+
+def awgn_llr(x: torch.Tensor, keys: torch.Tensor, sigma) -> torch.Tensor:
+    """Modulate, add noise, return channel LLRs 2y/sigma^2 (float32).
+
+    x: [B, N] bits; keys: [B, 2] per-frame keys; sigma: a float.
+
+    The arithmetic is the JAX package's frame step as XLA compiles it: the
+    noise term is erfinv(u) * (sigma * sqrt(2)), with the scalar product
+    formed first in float32, added to the BPSK symbol in one FMA, then
+    (y + y) / sigma^2.  The LLRs are bit-equal to that step's
+    (ops/noise.py)."""
+    u = uniform_jax(random_bits(keys, x.shape[-1]))
+    sigma = torch.tensor(sigma, dtype=torch.float32, device=x.device)
+    y = fma(erfinv_f32(u), sigma * SQRT2, bpsk(x))
+    return (y + y) / (sigma * sigma)
