@@ -1,9 +1,10 @@
 """polardecoding_tpu_torch — the PyTorch and CUDA port of polardecoding_tpu.
 
 The same presets, PN payloads, polar encoder, BPSK/AWGN channel with a
-bit-compatible threefry generator, BP decoder and adaptive Monte-Carlo sweep
-harness as the JAX package, running on an NVIDIA Hopper card through
-hand-written CUDA kernels (csrc/), each beside its plain PyTorch version.
+bit-compatible threefry generator, BP, SC, SCL and CA-SCL decoders and
+adaptive Monte-Carlo sweep harness as the JAX package, running on an NVIDIA
+Hopper card through hand-written CUDA kernels (csrc/), each beside its
+plain PyTorch version.
 Importing the package needs neither JAX nor nvcc.
 """
 from polardecoding_tpu_torch.configs import (

@@ -71,7 +71,7 @@ def check_matrix(exponents, length: int) -> np.ndarray:
     return _poly_mod_table(exponents, length)
 
 
-def _gf2_matmul(bits: torch.Tensor, M: np.ndarray) -> torch.Tensor:
+def gf2_matmul(bits: torch.Tensor, M: np.ndarray) -> torch.Tensor:
     """(bits . M) mod 2, returned in bits' dtype.  The product runs in
     float32, since CUDA has no int64 matmul: 0/1 operands give integer sums
     of at most k + r < 2^24, exact in float32 (and in TF32)."""
@@ -83,10 +83,10 @@ def _gf2_matmul(bits: torch.Tensor, M: np.ndarray) -> torch.Tensor:
 def crc_encode_multiplicative(message_bits: torch.Tensor, exponents):
     """w = m(D) g(D) as a batched GF(2) product; returns [..., k + r]."""
     E = multiplicative_encode_matrix(exponents, message_bits.shape[-1])
-    return _gf2_matmul(message_bits, E)
+    return gf2_matmul(message_bits, E)
 
 
 def crc_encode_systematic(message_bits: torch.Tensor, exponents):
     """[parity || message], parity = v . Gc (ref: CASCL_1024_sys.c:776-789)."""
     Gc = systematic_parity_matrix(exponents, message_bits.shape[-1])
-    return torch.cat([_gf2_matmul(message_bits, Gc), message_bits], dim=-1)
+    return torch.cat([gf2_matmul(message_bits, Gc), message_bits], dim=-1)

@@ -1,12 +1,14 @@
 """Monte-Carlo simulation harness: batched frame pipeline + adaptive-stop sweep
-(torch port of polardecoding_tpu.parallel.harness, BP frame step).
+(torch port of polardecoding_tpu.parallel.harness: the BP, SC, SCL and
+CA-SCL frame steps).
 
   reference (per frame, serial)            here (per super-batch, on the card)
   ---------------------------------        -------------------------------------
   payload from PN window                   PN gather, frame-index arithmetic
   encode x = u . Fn  (O(N^2) stdin matrix) GF(2) product or butterfly encode
   normal() noise loop                      counter-based per-frame keys
-  decode                                   batched BP (CUDA kernel on the card)
+  decode                                   batched BP / SC / SCL / CA-SCL
+                                           (CUDA kernels on the card)
   count info-bit errors                    vectorized compare + reduce
   stop when errBlock >= target             host-side stop on the counters
 
@@ -14,12 +16,14 @@ Payloads and noise are pure functions of (seed, frame index), with the JAX
 package's generator (ops/channel.py), so a frame here is the same frame as
 there and results are independent of batch size.  Error counts follow the
 reference: block error = any mismatch over the info set; BLER =
-errBlock / run.
+errBlock / run.  pm_ties counts the frames where an SCL selection hit an
+exact PM tie at the median (0 for BP and SC).
 
-Out of this slice (each raises NotImplementedError): decoder kinds other than
-"bp" (ROADMAP A5, A6), channel="mc" (ROADMAP B5), and early-stop BP presets in
-run_point/run_sweep, which the JAX package runs on its wave engine
-(ROADMAP A7).  There is no multi-device path yet (ROADMAP A9).
+Out of this slice (each raises NotImplementedError): the approximate rate-1
+SCL flavor, scl_r1 > 0 (ROADMAP B2-r1), decoder kind "bpr" (ROADMAP A8),
+channel="mc" (ROADMAP B5), and early-stop BP presets in run_point/run_sweep,
+which the JAX package runs on its wave engine (ROADMAP A7).  There is no
+multi-device path yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -39,8 +43,13 @@ from polardecoding_tpu_torch.convert import (
     point_result_from_json,
 )
 from polardecoding_tpu_torch.models.bp import bp_decode_auto
+from polardecoding_tpu_torch.models.scl import cascl_decode, sc_decode_auto, scl_decode_auto
 from polardecoding_tpu_torch.ops.channel import awgn_llr, fold_in, frame_keys, prng_key
-from polardecoding_tpu_torch.ops.crc import crc_encode_multiplicative, crc_encode_systematic
+from polardecoding_tpu_torch.ops.crc import (
+    check_matrix,
+    crc_encode_multiplicative,
+    crc_encode_systematic,
+)
 from polardecoding_tpu_torch.ops.encode import (
     encode_info_mxu,
     info_sub_generator,
@@ -114,8 +123,39 @@ def _make_encoder(encoder: str, tables: CodeTables, N: int) -> Callable:
     raise ValueError(f"unknown encoder {encoder!r}")
 
 
+def _make_decoder(preset: Preset, tables: CodeTables, engine: str) -> Callable:
+    """Channel LLRs [B, N] -> (u_hat [B, N] int8, per-frame tie counter [B]
+    or None), as the JAX step's decode."""
+    code, dec = preset.code, preset.decoder
+    frozen = tables.frozen
+    if dec.kind == "bp":
+        es = 4 if dec.bp_early_stop else 0
+        return lambda llr: (bp_decode_auto(
+            llr, frozen, iters=dec.bp_iters, flavor=dec.bp_flavor,
+            early_stop_every=es, engine=engine), None)
+    if dec.scl_r1 > 0:
+        raise NotImplementedError(
+            f"{preset.name}: the approximate rate-1 SCL flavor (scl_r1="
+            f"{dec.scl_r1}) is not ported yet (ROADMAP B2-r1)")
+    if dec.kind == "sc":
+        return lambda llr: (sc_decode_auto(llr, frozen, engine=engine),
+                            None)
+    if dec.kind == "scl":
+        return lambda llr: scl_decode_auto(
+            llr, frozen, list_size=dec.list_size, return_ties=True,
+            engine=engine)
+    if dec.kind == "cascl":
+        crc_R = check_matrix(code.crc, code.num_info)
+        return lambda llr: cascl_decode(
+            llr, frozen, tables.info_set, crc_R, list_size=dec.list_size,
+            return_ties=True, engine=engine)
+    raise NotImplementedError(
+        f"decoder kind {dec.kind!r} has no frame step in the port "
+        "(BPr is ROADMAP A8)")
+
+
 def make_frame_step(preset: Preset, batch: int, device="cuda",
-                    bp_engine: str = "auto", encoder: str = "mxu",
+                    engine: str = "auto", encoder: str = "mxu",
                     channel: str = "threefry",
                     tables: Optional[CodeTables] = None) -> Callable:
     """Build the super-batch step: (key, frame_start, sigma) ->
@@ -123,15 +163,11 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
     the batch of frames frame_start .. frame_start + batch - 1.
 
     key: the point's key from ops/channel (int64 [2]); sigma: a float.
-    bp_engine: "auto" (the CUDA kernel for a CUDA device, the plain version
-    on the CPU) or "plain".  encoder: "mxu" or "butterfly".  tables: the
-    code's tables (convert.code_tables_from_numpy), by default built from the
-    preset."""
-    code, dec = preset.code, preset.decoder
-    if dec.kind != "bp":
-        raise NotImplementedError(
-            f"decoder kind {dec.kind!r} is not ported yet: the SC/SCL/CA-SCL "
-            "frame steps are ROADMAP A5-A6")
+    engine: "auto" (the decoder's CUDA kernel for a CUDA device, its plain
+    version on the CPU) or "plain".  encoder: "mxu" or "butterfly".
+    tables: the code's tables (convert.code_tables_from_numpy), by default
+    built from the preset."""
+    code = preset.code
     if channel == "mc":
         raise NotImplementedError(
             "channel='mc' needs mc_channel_pallas ported (ROADMAP B5)")
@@ -142,7 +178,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
     if tables is None:
         tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
-    early_stop_every = 4 if dec.bp_early_stop else 0
+    decode = _make_decoder(preset, tables, engine)
     lanes = torch.arange(batch, dtype=torch.int64, device=device)
     no_ties = torch.zeros((), dtype=torch.int64, device=device)
 
@@ -156,17 +192,17 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
         else:
             w = crc_encode_multiplicative(payload, code.crc)
         llr = awgn_llr(encode(w), frame_keys(key.to(device), fidx), sigma)
-        u_hat = bp_decode_auto(llr, tables.frozen, iters=dec.bp_iters,
-                               flavor=dec.bp_flavor,
-                               early_stop_every=early_stop_every,
-                               engine=bp_engine)
+        u_hat, ties = decode(llr)
         bad = u_hat[:, tables.info_set] != w
-        return bad.sum(), bad.any(dim=-1).sum(), no_ties
+        pm_ties = no_ties if ties is None else (ties > 0).sum()
+        return bad.sum(), bad.any(dim=-1).sum(), pm_ties
 
     return step
 
 
 def _check_frame_step_path(preset: Preset):
+    """Raise for a preset whose JAX run_point does not run make_frame_step's
+    step; SC, SCL and CA-SCL presets run it there as here."""
     if preset.decoder.kind == "bp" and preset.decoder.bp_early_stop:
         raise NotImplementedError(
             f"{preset.name}: early-stop BP presets run on the continuous-"

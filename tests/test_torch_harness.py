@@ -123,8 +123,10 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
 
 
 def test_out_of_slice_paths_raise():
-    with pytest.raises(NotImplementedError, match="A5"):
-        th.make_frame_step(tcfg.preset("SCL_1024_L8"), 8, "cpu")
+    with pytest.raises(NotImplementedError, match="B2-r1"):
+        th.make_frame_step(tcfg.preset("SCL_1024_L8_FASTR1"), 8, "cpu")
+    with pytest.raises(NotImplementedError, match="B2-r1"):
+        th.run_point(tcfg.preset("SCL_1024_L16_FASTR1"), 2.0, device="cpu")
     with pytest.raises(NotImplementedError, match="B5"):
         th.make_frame_step(tcfg.preset("BP_128"), 8, "cpu", channel="mc")
     with pytest.raises(NotImplementedError, match="A7"):

@@ -1,7 +1,7 @@
 """The port stands alone: it imports without JAX and without nvcc, its build
-helper raises when it cannot build, and on a card the kernel equals its plain
-version.  This file imports no JAX, so its card test also runs where JAX is
-absent:
+helper raises when it cannot build, and on a card each kernel equals its
+plain version.  This file imports no JAX, so its card tests also run where JAX
+is absent:
 
   python -m pytest --noconftest -q -m cuda tests/test_torch_import.py
 """
@@ -62,13 +62,14 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_libs", {})
-    assert _build.sources() == ["bp_decode"]
+    assert _build.sources() == ["bp_decode", "scl_decode"]
     with pytest.raises(_build.BuildError, match="nvcc"):
         _build.find_nvcc()
     with pytest.raises(_build.BuildError, match="nvcc"):
         _build.build_all()
-    with pytest.raises(_build.BuildError, match="nvcc"):
-        _build.load("bp_decode")
+    for name in _build.sources():
+        with pytest.raises(_build.BuildError, match="nvcc"):
+            _build.load(name)
 
 
 def test_build_flags():
@@ -106,3 +107,33 @@ def test_kernel_equals_plain_on_card(N, flavor, early_stop_every):
     torch.cuda.synchronize()
     assert bp_kernel.LAUNCHES == launches + 1
     assert got.dtype == torch.int8 and (got == want).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L", [(128, 1), (128, 8), (128, 32),
+                                 (1024, 1), (1024, 8), (1024, 32)])
+def test_scl_kernel_equals_plain_on_card(N, L):
+    """On a card: the CUDA list-decode kernel's u_all, PM and tie counter
+    bit-equal to the plain version's on every frame, and the launch counted
+    once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.scl import scl_decode, scl_decode_auto
+    from polardecoding_tpu_torch.ops import scl_kernel
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask
+
+    rng = np.random.default_rng(N + L)
+    llr = torch.as_tensor((rng.normal(size=(32, N)) * 3).astype(np.float32),
+                          device="cuda")
+    frozen = torch.as_tensor(frozen_mask(N, N // 2), device="cuda")
+    launches = scl_kernel.LAUNCHES
+    got = scl_decode_auto(llr, frozen, list_size=L, return_all=True,
+                          return_ties=True)
+    want = scl_decode(llr, frozen, list_size=L, return_all=True,
+                      return_ties=True)
+    torch.cuda.synchronize()
+    assert scl_kernel.LAUNCHES == launches + 1
+    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
+    assert got[2].dtype == torch.int32
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and (g == w).all()
