@@ -31,39 +31,9 @@
 // stages whose pairs stay within a warp (shuffles instead of barriers), and
 // so take most barriers off the critical path.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "bp_common.cuh"
 
 namespace {
-
-// ops/chk.py LUT_THRESHOLDS / LUT_VALUES as f32 literals.
-constexpr float kT0 = 0.196f, kT1 = 0.433f, kT2 = 0.71f, kT3 = 1.05f,
-                kT4 = 1.508f, kT5 = 2.252f, kT6 = 4.5f;
-constexpr float kV0 = 0.65f, kV1 = 0.55f, kV2 = 0.45f, kV3 = 0.35f,
-                kV4 = 0.25f, kV5 = 0.15f, kV6 = 0.05f, kV7 = 0.0f;
-
-enum Flavor { kMinsumLut = 0, kMinsumLutFast = 1, kSpa = 2 };
-
-// The balanced select tree of ops/chk._lut_tree: a value exactly at a
-// threshold falls in the upper bin, NaN in bin 0.
-__device__ __forceinline__ float lut(float x) {
-  return x >= kT3 ? (x >= kT5 ? (x >= kT6 ? kV7 : kV6) : (x >= kT4 ? kV5 : kV4))
-                  : (x >= kT1 ? (x >= kT2 ? kV3 : kV2) : (x >= kT0 ? kV1 : kV0));
-}
-
-template <int F>
-__device__ __forceinline__ float chk(float a, float b) {
-  if (F == kMinsumLutFast) {
-    const float ap = fabsf(a + b), aq = fabsf(a - b);
-    return 0.5f * (ap - aq) + (lut(ap) - lut(aq));
-  }
-  const float s = ((a >= 0.f) == (b >= 0.f)) ? 1.f : -1.f;
-  const float sm = s * fminf(fabsf(a), fabsf(b));
-  if (F == kSpa) {
-    return sm + log1pf(expf(-fabsf(a + b))) - log1pf(expf(-fabsf(a - b)));
-  }
-  return sm + (lut(fabsf(a + b)) - lut(fabsf(a - b)));
-}
 
 template <int F>
 __global__ void __launch_bounds__(512, 2)
@@ -89,56 +59,22 @@ bp_decode_kernel(const float* __restrict__ ch, const float* __restrict__ fr,
   __syncthreads();
 
   for (int it = 0; it < iters; ++it) {
-    for (int i = 0; i < n; ++i) {
-      const int d = 1 << i;
-      const int u = ((t >> i) << (i + 1)) | (t & (d - 1));
-      const int l = u + d;
-      const float ru = R[i * N + u], rd = R[i * N + l];
-      const float lu = L[(i + 1) * N + u], ld = L[(i + 1) * N + l];
-      R[(i + 1) * N + u] = chk<F>(ru, ld + rd);
-      R[(i + 1) * N + l] = rd + chk<F>(ru, lu);
-      __syncthreads();
-    }
-    for (int i = n - 1; i >= 0; --i) {
-      const int d = 1 << i;
-      const int u = ((t >> i) << (i + 1)) | (t & (d - 1));
-      const int l = u + d;
-      const float ru = R[i * N + u], rd = R[i * N + l];
-      const float lu = L[(i + 1) * N + u], ld = L[(i + 1) * N + l];
-      L[i * N + u] = chk<F>(lu, ld + rd);
-      L[i * N + l] = ld + chk<F>(ru, lu);
-      __syncthreads();
-    }
-    if (es_every > 0 && (it + 1) % es_every == 0) {
-      for (int p = t; p < N; p += half) {
-        x[p] = (fr[p] > 0.f) ? 0 : (L[p] + R[p] < 0.f ? 1 : 0);
-      }
-      __syncthreads();
-      for (int i = 0; i < n; ++i) {
-        const int d = 1 << i;
-        const int u = ((t >> i) << (i + 1)) | (t & (d - 1));
-        x[u] ^= x[u + d];
-        __syncthreads();
-      }
-      int ok = 1;
-      for (int p = t; p < N; p += half) {
-        const uint8_t post = (L[n * N + p] + R[n * N + p] < 0.f) ? 1 : 0;
-        ok &= (x[p] == post);
-      }
-      if (__syncthreads_and(ok)) break;  // uniform across the block
+    bp::iteration<F>(L, R, n, N, t);
+    // uniform across the block
+    if (es_every > 0 && (it + 1) % es_every == 0 &&
+        bp::gmat_ok(L, R, x, n, N, t)) {
+      break;
     }
   }
 
-  for (int p = t; p < N; p += half) {
-    out[row + p] = (fr[p] > 0.f) ? 0 : (L[p] + R[p] < 0.f ? 1 : 0);
-  }
+  for (int p = t; p < N; p += half) out[row + p] = bp::decision(L, R, p);
 }
 
 template <int F>
 cudaError_t launch(const float* ch, const float* fr, int8_t* out, int B, int n,
                    int iters, int es_every, cudaStream_t stream) {
   const int N = 1 << n;
-  const size_t smem = 2 * static_cast<size_t>(n + 1) * N * sizeof(float) + N;
+  const size_t smem = bp::lattice_bytes(n);
   cudaError_t err = cudaFuncSetAttribute(
       bp_decode_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -156,19 +92,17 @@ cudaError_t launch(const float* ch, const float* fr, int8_t* out, int B, int n,
 extern "C" int bp_decode_launch(const float* ch, const float* fr, int8_t* out,
                                 int B, int N, int iters, int flavor,
                                 int es_every, cudaStream_t stream) {
-  int n = 0;
-  while ((1 << n) < N) ++n;
-  if (B <= 0 || N < 8 || N > 1024 || (1 << n) != N || iters < 0 ||
-      es_every < 0) {
+  const int n = bp::log2_of(N);
+  if (B <= 0 || n < 0 || iters < 0 || es_every < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   switch (flavor) {
-    case kMinsumLut:
-      return launch<kMinsumLut>(ch, fr, out, B, n, iters, es_every, stream);
-    case kMinsumLutFast:
-      return launch<kMinsumLutFast>(ch, fr, out, B, n, iters, es_every, stream);
-    case kSpa:
-      return launch<kSpa>(ch, fr, out, B, n, iters, es_every, stream);
+    case bp::kMinsumLut:
+      return launch<bp::kMinsumLut>(ch, fr, out, B, n, iters, es_every, stream);
+    case bp::kMinsumLutFast:
+      return launch<bp::kMinsumLutFast>(ch, fr, out, B, n, iters, es_every, stream);
+    case bp::kSpa:
+      return launch<bp::kSpa>(ch, fr, out, B, n, iters, es_every, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

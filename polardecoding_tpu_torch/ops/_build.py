@@ -2,8 +2,8 @@
 
 Each csrc/<name>.cu compiles with nvcc into its own shared library with a
 plain C interface, polardecoding_tpu_torch/_build/<name>-<hash>.so, where
-<hash> is taken from the source and the flags, so an edited source never
-loads a stale library.  `build_all` starts one nvcc per source, all at once.
+<hash> is taken from the source, the shared headers (csrc/*.cuh) and the
+flags, so an edited source or header never loads a stale library.  `build_all` starts one nvcc per source, all at once.
 Importing this module needs no nvcc: a missing nvcc or a failed build raises
 when a kernel is first built.
 """
@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import tempfile
 import threading
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -53,9 +55,13 @@ def sources() -> list[str]:
 
 
 def _target(name: str) -> str:
+    """The library's path, hashed over the flags, the source and every
+    shared header of csrc/ (*.cuh)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for f in [f"{name}.cu"] + headers:
+        with open(os.path.join(CSRC, f), "rb") as fh:
+            h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
@@ -117,3 +123,27 @@ def load(name: str) -> ctypes.CDLL:
             if lib is None:
                 lib = _libs[name] = ctypes.CDLL(out)
     return lib
+
+
+class LaunchError(RuntimeError):
+    pass
+
+
+def launch(name: str, argtypes, device, *args) -> None:
+    """Call csrc/<name>.cu's C entry `<name>_launch(*args, stream)` on the
+    current stream of `device`, without synchronising.  argtypes are the
+    ctypes types of args.  Raises LaunchError with the library's
+    `<name>_error_string` when the entry refuses the launch."""
+    lib = load(name)
+    fn = getattr(lib, f"{name}_launch")
+    err = getattr(lib, f"{name}_error_string")
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise LaunchError(f"{name} kernel launch failed: "
+                          f"{err(rc).decode()} ({rc})")

@@ -19,17 +19,7 @@ SOURCE = "polardecoding_tpu_torch/csrc/bp_decode.cu"
 REPLACES = "polardecoding_tpu/ops/pallas/bp_kernel.py:771"
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bp_decode")
-    fn = lib.bp_decode_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.bp_decode_error_string.argtypes = [ctypes.c_int]
-        lib.bp_decode_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
 
 
 def bp_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor, iters: int = 100,
@@ -63,14 +53,8 @@ def bp_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor, iters: int = 100,
     if B == 0:
         return out
     fr = torch.where(frozen, 999.0, 0.0).to(torch.float32).contiguous()
-    lib = _lib()
-    with torch.cuda.device(ch_llr.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.bp_decode_launch(ch_llr.data_ptr(), fr.data_ptr(),
-                                  out.data_ptr(), B, N, iters, FLAVORS[flavor],
-                                  early_stop_every, stream)
-    if rc != 0:
-        msg = lib.bp_decode_error_string(rc).decode()
-        raise RuntimeError(f"bp_decode kernel launch failed: {msg} ({rc})")
+    _build.launch("bp_decode", _ARGTYPES, ch_llr.device, ch_llr.data_ptr(),
+                  fr.data_ptr(), out.data_ptr(), B, N, iters, FLAVORS[flavor],
+                  early_stop_every)
     LAUNCHES += 1
     return out

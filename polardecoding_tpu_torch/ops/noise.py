@@ -166,19 +166,50 @@ def uniform_pm1_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return 2.0 * u - 1.0
 
 
-def gaussian_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Random bits -> float32 standard normal through the strictly-open
-    uniform map: the JAX package's in-kernel Gaussian, which forms w as
-    -log((1-x)(1+x)) and evaluates Giles' polynomials with a multiply and
-    an add per step."""
+def _erfinv_times_x(bits: torch.Tensor) -> torch.Tensor:
+    """erfinv(x) for the strictly-open uniform x of `bits`, as the JAX
+    package's in-kernel Gaussian forms it inside its jitted engines:
+    w = -log((1-x)(1+x)), then one of Giles' polynomials in w - 2.5 or
+    sqrt(w) - 3 with one fma per step, as XLA's x86 CPU code contracts
+    them, times x.  (Run eagerly, op by op, the JAX function steps with a
+    multiply and an add and differs on about 4% of samples.)"""
     x = uniform_pm1_from_bits(bits)
     w = -log_f32((1.0 - x) * (1.0 + x))
     lt = w < 5.0
     ws = torch.where(lt, w - 2.5, sqrt_f32(w) - 3.0)
     p = _select(lt, _W_LT5[0], _W_GE5[0])
     for a, b in zip(_W_LT5[1:], _W_GE5[1:]):
-        p = _select(lt, a, b) + p * ws
-    return SQRT2 * (p * x)
+        p = fma(p, ws, _select(lt, a, b))
+    return p * x
+
+
+def gaussian_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Random bits -> float32 standard normal through the strictly-open
+    uniform map: the JAX package's in-kernel Gaussian as its jitted engines
+    compute it (see _erfinv_times_x)."""
+    return SQRT2 * _erfinv_times_x(bits)
+
+
+def mc_llr(bits: torch.Tensor, x: torch.Tensor, sigma) -> torch.Tensor:
+    """Channel LLRs of codeword bits x (0/1 float32) with the Gaussian of
+    `bits`, as the JAX package's MC engines compute them under jit
+    (bp_wave_mc_jnp and mc_channel_jnp, in both of which XLA contracts the
+    same way): (2/sigma) * fma(sqrt(2), erfinv(u), +-1/sigma), the BPSK sign
+    taken by a select.  csrc/noise.cuh computes the same with fmaf."""
+    inv_s = 1.0 / torch.as_tensor(sigma, dtype=_F32, device=x.device)
+    sgn = torch.where(x > 0.5, -inv_s, inv_s)
+    return (2.0 * inv_s) * fma(SQRT2, _erfinv_times_x(bits), sgn)
+
+
+def counter_bits(k0: int, k1: int, c_hi: int, batch: int, N: int,
+                 device=None) -> torch.Tensor:
+    """The in-kernel generator of the JAX package's MC engines: words
+    [batch, N] (int64), the first word of threefry2x32 under key (k0, k1)
+    at counter (c_hi, row * N + lane)."""
+    lanes = (torch.arange(batch, dtype=torch.int64, device=device)[:, None] * N
+             + torch.arange(N, dtype=torch.int64, device=device))
+    return threefry2x32(k0 & MASK32, k1 & MASK32, c_hi & MASK32,
+                        lanes & MASK32)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -21,17 +21,7 @@ SOURCE = "polardecoding_tpu_torch/csrc/scl_decode.cu"
 REPLACES = "polardecoding_tpu/ops/pallas/scl_fast_kernel.py:866"
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("scl_decode")
-    fn = lib.scl_decode_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.scl_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.scl_decode_smem_bytes.restype = ctypes.c_size_t
-        lib.scl_decode_error_string.argtypes = [ctypes.c_int]
-        lib.scl_decode_error_string.restype = ctypes.c_char_p
-    return lib
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
 
 
 def scl_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor,
@@ -67,16 +57,16 @@ def scl_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor,
     if B == 0:
         return u_all, PM, ties
     fz = frozen.to(torch.uint8).contiguous()
-    lib = _lib()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.scl_decode_launch(ch_llr.data_ptr(), fz.data_ptr(),
-                                   u_all.data_ptr(), PM.data_ptr(),
-                                   ties.data_ptr(), B, N, L, stream)
-    if rc != 0:
-        msg = lib.scl_decode_error_string(rc).decode()
-        smem = lib.scl_decode_smem_bytes(N, L)
-        raise RuntimeError(f"scl_decode kernel launch failed at N={N}, L={L} "
-                           f"({smem} bytes of shared memory): {msg} ({rc})")
+    try:
+        _build.launch("scl_decode", _ARGTYPES, dev, ch_llr.data_ptr(),
+                      fz.data_ptr(), u_all.data_ptr(), PM.data_ptr(),
+                      ties.data_ptr(), B, N, L)
+    except _build.LaunchError as e:
+        smem_bytes = _build.load("scl_decode").scl_decode_smem_bytes
+        smem_bytes.restype = ctypes.c_size_t
+        raise _build.LaunchError(
+            f"{e} at N={N}, L={L} "
+            f"({smem_bytes(ctypes.c_int(N), ctypes.c_int(L))} bytes of shared "
+            "memory)") from None
     LAUNCHES += 1
     return u_all, PM, ties

@@ -123,16 +123,21 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
 
 
 def test_out_of_slice_paths_raise():
+    """Only the approximate rate-1 SCL flavor (B2-r1) and BPr (A8) remain
+    out of the port; an unknown channel or noise source raises too."""
     with pytest.raises(NotImplementedError, match="B2-r1"):
         th.make_frame_step(tcfg.preset("SCL_1024_L8_FASTR1"), 8, "cpu")
     with pytest.raises(NotImplementedError, match="B2-r1"):
         th.run_point(tcfg.preset("SCL_1024_L16_FASTR1"), 2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="B5"):
-        th.make_frame_step(tcfg.preset("BP_128"), 8, "cpu", channel="mc")
-    with pytest.raises(NotImplementedError, match="A7"):
-        th.run_point(tcfg.preset("BP_1024_ES"), 2.0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        th.run_sweep(tcfg.preset("BP_1024_ES"), device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        th.make_frame_step(tcfg.preset("BPr_128"), 8, "cpu")
+    with pytest.raises(NotImplementedError, match="A8"):
+        th.run_sweep(tcfg.preset("BPr_128"), device="cpu")
+    with pytest.raises(ValueError, match="channel"):
+        th.make_frame_step(tcfg.preset("BP_128"), 8, "cpu", channel="awgn")
+    with pytest.raises(ValueError, match="noise"):
+        th.make_frame_step(tcfg.preset("BP_128"), 8, "cpu", channel="mc",
+                           noise="hw")
 
 
 def test_early_stop_preset_frame_step_equals_jax():

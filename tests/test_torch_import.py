@@ -62,7 +62,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_libs", {})
-    assert _build.sources() == ["bp_decode", "scl_decode"]
+    assert _build.sources() == ["bp_decode", "bp_wave", "bp_wave_mc",
+                                "mc_channel", "scl_decode"]
     with pytest.raises(_build.BuildError, match="nvcc"):
         _build.find_nvcc()
     with pytest.raises(_build.BuildError, match="nvcc"):
@@ -137,3 +138,115 @@ def test_scl_kernel_equals_plain_on_card(N, L):
     assert got[2].dtype == torch.int32
     for g, w in zip(got, want):
         assert g.shape == w.shape and (g == w).all()
+
+
+def _wave_inputs(N, B, seed):
+    """A wave state on the card after 8 iterations of random LLRs, fresh
+    LLRs and a random retire mask."""
+    from polardecoding_tpu_torch.models.bp import bp_wave_plain, wave_init_state
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask
+
+    rng = np.random.default_rng(seed)
+    frozen = torch.as_tensor(frozen_mask(N, N // 2), device="cuda")
+
+    def llr():
+        return torch.as_tensor((rng.normal(size=(B, N)) * 2.5 + 2.0)
+                               .astype(np.float32), device="cuda")
+
+    state = bp_wave_plain(wave_init_state(llr(), frozen), 8)
+    return state, llr(), torch.as_tensor(rng.random(B) < 0.5, device="cuda")
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        (a.view(torch.int32) == b.view(torch.int32)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,check_every", [(128, 0), (128, 4), (1024, 0),
+                                           (1024, 1)])
+def test_wave_kernels_equal_plain_on_card(N, check_every):
+    """On a card: the fused wave kernel's state, u_hat and done, and the
+    unfused kernel's state, bit-equal to the plain versions, each launch
+    counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.bp import bp_wave, bp_wave_fused
+    from polardecoding_tpu_torch.ops import bp_wave_kernel
+
+    state, llr, retire = _wave_inputs(N, 64, N + check_every)
+    launches = dict(bp_wave_kernel.LAUNCHES)
+    got = bp_wave_fused(state.clone(), llr, retire, 8, check_every=check_every)
+    want = bp_wave_fused(state.clone(), llr, retire, 8, check_every=check_every,
+                         engine="plain")
+    got_w = bp_wave(state.clone(), 8)
+    want_w = bp_wave(state.clone(), 8, engine="plain")
+    torch.cuda.synchronize()
+    assert bp_wave_kernel.LAUNCHES == {k: v + 1 for k, v in launches.items()}
+    assert _same_bits(got[0], want[0]) and _same_bits(got_w, want_w)
+    assert got[1].dtype == torch.int8 and (got[1] == want[1]).all()
+    assert got[2].dtype == torch.bool and (got[2] == want[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,cadence,noise", [(128, 1, "kernel"),
+                                             (128, 2, "bits"),
+                                             (1024, 2, "kernel")])
+def test_wave_mc_kernel_equals_plain_on_card(N, cadence, noise):
+    """On a card: four MC waves and a drain, state, meta and stats bit-equal
+    to the plain version's, with counter noise or given words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.bp import (bp_wave_mc, mc_delta,
+                                                   mc_meta_init, mc_tables,
+                                                   wave_init_state)
+    from polardecoding_tpu_torch.ops import bp_wave_mc_kernel
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask, info_set
+
+    B, K = 64, N // 2
+    rng = np.random.default_rng(N)
+    tabs = mc_tables(info_set(N, K), K, N, "cuda")
+    s1 = wave_init_state(torch.zeros(B, N, device="cuda"),
+                         torch.as_tensor(frozen_mask(N, K), device="cuda"))
+    m1 = mc_meta_init(B, N, K, "cuda")
+    s2, m2 = s1.clone(), m1.clone()
+    launches = bp_wave_mc_kernel.LAUNCHES
+    for step in range(5):
+        bits = None if noise == "kernel" else torch.as_tensor(
+            rng.integers(0, 2 ** 32, (2, B, N)), device="cuda")
+        kw = dict(iters=8, iter_max=24, delta=mc_delta(B, K), drain=step == 4,
+                  cadence=cadence, gen_bits=bits is None)
+        seeds = (0x13198A2E, 0x03707344, 0x13198A2E ^ 0x03707344, step)
+        s1, m1, x1 = bp_wave_mc(s1, m1, *tabs, 0.8, seeds, bits, **kw)
+        s2, m2, x2 = bp_wave_mc(s2, m2, *tabs, 0.8, seeds, bits, engine="plain",
+                                **kw)
+        torch.cuda.synchronize()
+        assert _same_bits(s1, s2) and _same_bits(m1, m2) and _same_bits(x1, x2)
+    assert bp_wave_mc_kernel.LAUNCHES == launches + 5
+
+
+@pytest.mark.cuda
+def test_mc_channel_kernel_equals_plain_on_card():
+    """On a card: the MC channel's LLRs bit-equal to the plain version's,
+    with counter noise and with given words."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.bp import mc_tables
+    from polardecoding_tpu_torch.ops import channel_kernel
+    from polardecoding_tpu_torch.utils.sequences import info_set
+
+    B, N = 256, 1024
+    _, xtab = mc_tables(info_set(N, 512), 512, N, "cuda")
+    m = (torch.arange(B, device="cuda") * 8) % 63
+    seeds = (1, 2, 3, 4096)
+    given = torch.as_tensor(np.random.default_rng(1).integers(0, 2 ** 32, (B, N)),
+                            device="cuda")
+    launches = channel_kernel.LAUNCHES
+    for bits in (None, given):
+        got = channel_kernel.mc_channel(m, xtab, 0.8, seeds, bits,
+                                        gen_bits=bits is None)
+        want = channel_kernel.mc_channel(m, xtab, 0.8, seeds, bits,
+                                         gen_bits=bits is None, engine="plain")
+        torch.cuda.synchronize()
+        assert _same_bits(got, want)
+    assert channel_kernel.LAUNCHES == launches + 2

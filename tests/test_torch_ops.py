@@ -180,13 +180,32 @@ def test_fma_and_sqrt_correctly_rounded():
     assert (tnoise.sqrt_f32(torch.as_tensor(w)).numpy() == np.sqrt(w)).all()
 
 
-def test_gaussian_from_bits_bit_equal_to_jax_package():
-    """The JAX package's in-kernel Gaussian as its ops run one by one
-    (a multiply and an add per polynomial step): uniforms and normals
-    bit-equal."""
+def _gaussian_eager(bits):
+    """The in-kernel Gaussian from the port's primitives with a multiply and
+    an add per Giles step, as the JAX function runs op by op."""
+    x = tnoise.uniform_pm1_from_bits(bits)
+    w = -tnoise.log_f32((1.0 - x) * (1.0 + x))
+    lt = w < 5.0
+    ws = torch.where(lt, w - 2.5, tnoise.sqrt_f32(w) - 3.0)
+    p = tnoise._select(lt, tnoise._W_LT5[0], tnoise._W_GE5[0])
+    for a, b in zip(tnoise._W_LT5[1:], tnoise._W_GE5[1:]):
+        p = tnoise._select(lt, a, b) + p * ws
+    return tnoise.SQRT2 * (p * x)
+
+
+@pytest.mark.parametrize("jit", [False, True])
+def test_gaussian_from_bits_bit_equal_to_jax_package(jit):
+    """The JAX package's in-kernel Gaussian, bit-equal: as jax.jit compiles
+    it, where XLA's x86 CPU code fuses each polynomial step into an FMA, to
+    the port's gaussian_from_bits (the form its MC engines use); eagerly, as
+    its ops run one by one, to the same primitives stepped with a multiply
+    and an add (the two forms differ on about 4% of samples).  Uniforms
+    bit-equal too."""
     bits = np.random.default_rng(2).integers(0, 2 ** 32, 1 << 16, dtype=np.uint64)
-    want = np.asarray(jnoise.gaussian_from_bits(jnp.asarray(bits.astype(np.uint32))))
-    got = tnoise.gaussian_from_bits(torch.as_tensor(bits.astype(np.int64))).numpy()
+    fn = jax.jit(jnoise.gaussian_from_bits) if jit else jnoise.gaussian_from_bits
+    want = np.asarray(fn(jnp.asarray(bits.astype(np.uint32))))
+    tbits = torch.as_tensor(bits.astype(np.int64))
+    got = (tnoise.gaussian_from_bits if jit else _gaussian_eager)(tbits).numpy()
     assert (got == want).all()
     u = tnoise.uniform_pm1_from_bits(torch.as_tensor(bits.astype(np.int64))).numpy()
     assert (u == np.asarray(jnoise.uniform_pm1_from_bits(
