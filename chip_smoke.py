@@ -18,19 +18,27 @@
 4. holds the SCL list-decode kernel against its plain version on the card:
    u_all, PM and tie counter bit-equal on every frame at B=512, LLRs from
    the port's channel at 1.0 and 2.0 dB, N in {128, 1024} with the presets'
-   masks and L in {1, 2, 8, 32}; a random frozen mask at N=1024 with L=4 and
-   L=32 (the traced-mask kernels' contract); a forced-tie input whose tie
-   counter must be non-zero; and the frame-step counters at 1.5 dB equal
+   masks and L in {1, 2, 8, 16, 32}; a random frozen mask at N=1024 with L=4
+   and L=32 (the traced-mask kernels' contract); a forced-tie input whose
+   tie counter must be non-zero; and the frame-step counters at 1.5 dB equal
    with kernel and plain decoder for SCL_1024_L8 (batch 16384),
    CASCL_1024_L8 and SC_1024 (4096) and CASCL_1024_L32 (1024);
-5. drives the BP_1024 main path with the launch counts at 0: four
-   make_frame_step steps at batch 8192, then run_point at 2.0 dB to 200
-   error blocks, whose BLER must lie in [0.020, 0.043] (BASELINE.md: 0.02948
-   and 0.03292 for two seeds); the BP kernel must have been launched;
-6. drives the SCL_1024_L8 main path the same way: four steps at batch
-   16384, then run_point at 2.0 dB to 100 error blocks, whose BLER must lie
-   in [0.0055, 0.0125] (BASELINE.md: 9.128e-3, a 5-seed mean, and 7.85e-3
-   from a third-party oracle); the SCL kernel must have been launched;
+5. the same for the kernel's rate-1 flavor (r1 in {2, 4}, wloop 2, L in
+   {1, 2, 4, 8, 16, 32}): the _FASTR1 presets' masks (N=128 and 1024, CRC-24
+   included) at 1.0 and 2.0 dB, all-info masks (one R1 node at the root) and
+   random masks at N=32 and 1024, the forced-tie input; and the step
+   counters at 1.5 dB of SCL_1024_L8_FASTR1 (batch 16384),
+   CASCL_1024_L8_FASTR1 and SCL_1024_L16_FASTR1 (4096);
+6. drives each main path with the launch counts at 0: four make_frame_step
+   steps, then run_point at 2.0 dB; the path's kernel must have been
+   launched and no other.  BP_1024 at batch 8192 to 200 error blocks, BLER
+   in [0.020, 0.043] (BASELINE.md: 0.02948 and 0.03292 for two seeds);
+   SCL_1024_L8 and SCL_1024_L8_FASTR1 at batch 16384 to 100 error blocks,
+   BLER in [0.0055, 0.0125] (BASELINE.md: 9.128e-3, a 5-seed mean, and
+   7.85e-3 from a third-party oracle; the flavor's BLER is within 0.5% of
+   exact's, docs/ROOFLINE.md:618); CASCL_1024_L8_FASTR1 and
+   SCL_1024_L16_FASTR1 at batch 16384 to 50 error blocks, BLER in
+   [0.002, 0.007] (BASELINE.md: 4.088e-3) and [0.0045, 0.0125] (8.032e-3);
 7. holds the four wave-engine kernels against their plain versions on the
    card, bit for bit on every frame: the fused wave kernel (check_every 0
    and 4) and the unfused one over four waves with retirements, N in
@@ -47,14 +55,15 @@
    channel="mc" at batch 8192; each path's kernel must have been launched;
 9. times each kernel and its plain version (plain, kernel, kernel, plain) at
    its main path's shape, BP_1024 with B=8192 and 100 iterations,
-   SCL_1024_L8 with B=16384, one wave at B=16384 (K=8 fused and unfused,
+   SCL_1024_L8 with B=16384 and SCL_1024_L8_FASTR1 on the same LLRs (the
+   exact kernel beside it), one wave at B=16384 (K=8 fused and unfused,
    K=32 MC) and the MC channel at B=8192, and holds the kernel's output
    bit-equal to the plain version's there on every frame; times each whole
    frame step (with its peak device memory), and its encode and channel
    stages apart, the fused ES wave step split into kernel and channel, and
    the retired frames per second of the fused and MC wave paths over one
    chunk of eight steps, with CUDA events after warmup;
-10. traces three steps of each of the four paths with torch.profiler: wall
+10. traces three steps of each of the five paths with torch.profiler: wall
    and device time per step, the device's idle share, the device operations
    per step and the kernels that take the most time;
 11. prints the kernels line (each kernel's launches on its main path, its
@@ -97,7 +106,7 @@ STEP_REPS = 5
 PROFILE_STEPS = 3
 # the SCL path: bench.py's exact SCL leg (batch 16384)
 SCL_CMP_PRESETS = ("SCL_128_L8", "SCL_1024_L8")
-SCL_CMP_LISTS = (1, 2, 8, 32)
+SCL_CMP_LISTS = (1, 2, 8, 16, 32)
 SCL_RANDOM_MASK_LISTS = (4, 32)
 SCL_STEP_CASES = (("SCL_1024_L8", 16384), ("CASCL_1024_L8", 4096),
                   ("SC_1024", 4096), ("CASCL_1024_L32", 1024))
@@ -109,6 +118,21 @@ SCL_BATCH = 16384
 SCL_ERROR_BLOCKS = 100
 SCL_BLER_RANGE = (0.0055, 0.0125)
 SCL_KERNEL_REPS = 5
+# the rate-1 flavor: bench.py's default SCL leg (SCL_1024_L8_FASTR1, batch
+# 16384) and the other _FASTR1 presets (SCL_1024_L16_FASTR1's mask is
+# SCL_1024_L8_FASTR1's); wloop is the presets' (models/scl.default_wloop)
+R1_CMP_PRESETS = ("SCL_128_L8_FASTR1", "SCL_1024_L8_FASTR1",
+                  "CASCL_1024_L8_FASTR1")
+R1_CMP_LISTS = (1, 2, 4, 8, 16, 32)
+R1_CMP_R1 = (2, 4)
+R1_MASK_NS = (32, 1024)
+R1_STEP_CASES = (("SCL_1024_L8_FASTR1", 16384), ("CASCL_1024_L8_FASTR1", 4096),
+                 ("SCL_1024_L16_FASTR1", 4096))
+R1_PRESET = "SCL_1024_L8_FASTR1"
+R1_MAIN_PATHS = (("SCL_1024_L8_FASTR1", 100, (0.0055, 0.0125)),
+                 ("CASCL_1024_L8_FASTR1", 50, (0.002, 0.007)),
+                 ("SCL_1024_L16_FASTR1", 50, (0.0045, 0.0125)))
+WLOOP = 2
 # the wave paths: run_point's early-stop path (the fused engine at its
 # default K=8) and bench.py's BP leg (engine mc, BP_1024_FASTCHK, K=32,
 # cadence 2, batch 16384; make_wave_step_mc's default spares at K=32)
@@ -179,29 +203,33 @@ def emit(obj):
 
 
 def kernels():
-    """{kernel name: (wrapper module, key of its count or None)}."""
+    """{kernel name: (wrapper module, its count's attribute, key of the count
+    in a dict-valued attribute or None)}."""
     from polardecoding_tpu_torch.ops import (bp_kernel, bp_wave_kernel,
                                              bp_wave_mc_kernel, channel_kernel,
                                              scl_kernel)
 
-    return {"bp_decode": (bp_kernel, None), "scl_decode": (scl_kernel, None),
-            "bp_wave_fused": (bp_wave_kernel, "bp_wave_fused"),
-            "bp_wave": (bp_wave_kernel, "bp_wave"),
-            "bp_wave_mc": (bp_wave_mc_kernel, None),
-            "mc_channel": (channel_kernel, None)}
+    return {"bp_decode": (bp_kernel, "LAUNCHES", None),
+            "scl_decode": (scl_kernel, "LAUNCHES", None),
+            "scl_decode_r1": (scl_kernel, "LAUNCHES_R1", None),
+            "bp_wave_fused": (bp_wave_kernel, "LAUNCHES", "bp_wave_fused"),
+            "bp_wave": (bp_wave_kernel, "LAUNCHES", "bp_wave"),
+            "bp_wave_mc": (bp_wave_mc_kernel, "LAUNCHES", None),
+            "mc_channel": (channel_kernel, "LAUNCHES", None)}
 
 
 def reset_counts():
-    for mod, key in kernels().values():
+    for mod, attr, key in kernels().values():
         if key is None:
-            mod.LAUNCHES = 0
+            setattr(mod, attr, 0)
         else:
-            mod.LAUNCHES[key] = 0
+            getattr(mod, attr)[key] = 0
 
 
 def launches(name) -> int:
-    mod, key = kernels()[name]
-    return mod.LAUNCHES if key is None else mod.LAUNCHES[key]
+    mod, attr, key = kernels()[name]
+    count = getattr(mod, attr)
+    return count if key is None else count[key]
 
 
 def card_line() -> str:
@@ -225,19 +253,21 @@ def phase_build(_build):
 
 def llr_frames(name, batch, snr_db, device, seed=7):
     """Channel LLRs of frames 0..batch-1 of a preset at snr_db from the
-    port's own pipeline, with the code's frozen mask and the true u."""
+    port's own pipeline (CRC included), with the code's frozen mask and the
+    true u."""
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.ops.channel import (awgn_llr, fold_in,
                                                      frame_keys, prng_key,
                                                      sigma_from_ebn0_db)
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu, scatter_info
-    from polardecoding_tpu_torch.parallel.harness import (code_tables,
+    from polardecoding_tpu_torch.parallel.harness import (_crc_encode,
+                                                          code_tables,
                                                           payload_from_index)
 
     code = preset(name).code
     tables = code_tables(code, device)
     fidx = torch.arange(batch, device=device)
-    w = payload_from_index(fidx, tables.pn, code.K)
+    w = _crc_encode(code, payload_from_index(fidx, tables.pn, code.K))
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
     llr = awgn_llr(encode_info_mxu(w, tables.g_rows), frame_keys(key, fidx),
                    sigma_from_ebn0_db(snr_db))
@@ -310,7 +340,8 @@ def phase_compare():
 def phase_main(name, batch, error_blocks, bler_range, kernel):
     """Drive one main path with every launch count at 0 just before: four
     make_frame_step steps, then run_point at MAIN_SNR; returns the count of
-    launches of the path's kernel read just after."""
+    launches of the path's kernel read just after, and checks that no other
+    kernel was launched."""
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
                                                      sigma_from_ebn0_db)
@@ -329,10 +360,12 @@ def phase_main(name, batch, error_blocks, bler_range, kernel):
                     error_blocks=error_blocks)
     torch.cuda.synchronize()
     count = launches(kernel)
+    others = {k: launches(k) for k in kernels() if k != kernel and launches(k)}
     emit({"main_path": {"preset": p.name, "batch": batch,
                         "steps": steps, "point": res.to_json(p.code.num_info),
                         "seconds": time.perf_counter() - t0,
-                        "launches": count}})
+                        "kernel": kernel, "launches": count,
+                        "other_launches": others}})
     for eb, ebl, ties in steps:
         check(0 <= ebl <= batch and eb >= ebl and 0 <= ties <= batch
               and (list_decoder or ties == 0),
@@ -347,6 +380,7 @@ def phase_main(name, batch, error_blocks, bler_range, kernel):
     check(bler_range[0] <= res.bler <= bler_range[1],
           f"{name}: BLER {res.bler} at {MAIN_SNR} dB outside {bler_range}")
     check(count == MAIN_STEPS + k, f"kernel launched {count} times")
+    check(not others, f"{name}: other kernels launched: {others}")
     return count
 
 
@@ -431,6 +465,78 @@ def phase_scl_compare():
     return worst_all
 
 
+def phase_scl_r1_compare():
+    """The list-decode kernel's rate-1 flavor against its plain version on
+    the card; returns the largest |kernel - plain| over every case (0 when
+    bit-equal)."""
+    import numpy as np
+
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.models.scl import scl_decode
+    from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
+                                                     sigma_from_ebn0_db)
+    from polardecoding_tpu_torch.ops.scl_kernel import scl_decode_cuda
+    from polardecoding_tpu_torch.parallel.harness import make_frame_step
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask
+
+    worst_all = 0.0
+
+    def compare(llr, frozen, L, r1, **rec):
+        nonlocal worst_all
+        got = scl_decode_cuda(llr, frozen, L, r1=r1, wloop=WLOOP)
+        want = scl_decode(llr, frozen, list_size=L, return_all=True,
+                          return_ties=True, r1=r1, wloop=WLOOP)
+        torch.cuda.synchronize()
+        worst, equal = _scl_diff(got, want)
+        rec = {"scl_r1_compare": dict(rec, N=llr.shape[1], L=L, r1=r1,
+                                      frames=llr.shape[0], frames_equal=equal,
+                                      tie_frames=int((want[2] > 0).sum()),
+                                      max_abs_err=worst)}
+        emit(rec)
+        check(worst == 0 and equal == llr.shape[0], f"kernel != plain: {rec}")
+        worst_all = max(worst_all, worst)
+        return want
+
+    for name in R1_CMP_PRESETS:
+        for snr in CMP_SNRS:
+            llr, frozen, _ = llr_frames(name, CMP_BATCH, snr, DEVICE)
+            for L in R1_CMP_LISTS:
+                for r1 in R1_CMP_R1:
+                    compare(llr, frozen, L, r1, preset=name, snr_db=snr)
+    # an all-info code is one R1 node at the root, whose input is the channel
+    rng = np.random.default_rng(2025)
+    llr, _, _ = llr_frames("SCL_1024_L8", CMP_BATCH, 1.0, DEVICE)
+    for N in R1_MASK_NS:
+        for label, mask in (("all-info", np.zeros(N, bool)),
+                            ("random", rng.random(N) < 0.5)):
+            mask = torch.as_tensor(mask, device=DEVICE)
+            for L in R1_CMP_LISTS:
+                for r1 in R1_CMP_R1:
+                    compare(llr[:, :N].contiguous(), mask, L, r1,
+                            preset=f"{label} mask", snr_db=1.0)
+    tie_llr = torch.tensor([1.0, -1.0] * 16, device=DEVICE).repeat(64, 1)
+    tie_mask = torch.as_tensor(frozen_mask(32, 20), device=DEVICE)
+    want = compare(tie_llr, tie_mask, 4, 2, preset="forced ties N=32")
+    check(int(want[2].sum()) > 0, "the forced-tie input tied nowhere")
+
+    counters = {}
+    for name, batch in R1_STEP_CASES:
+        p = preset(name)
+        key = fold_in(prng_key(p.sweep.seed, DEVICE),
+                      int(round(SCL_STEP_SNR * 100)))
+        sigma = sigma_from_ebn0_db(SCL_STEP_SNR)
+        got = {}
+        for engine in ("auto", "plain"):
+            step = make_frame_step(p, batch, DEVICE, engine=engine)
+            got[engine] = [int(c) for c in step(key, 0, sigma)]
+        counters[name] = dict(got, batch=batch)
+        check(got["auto"] == got["plain"],
+              f"{name}: frame step counters differ between kernel and plain: "
+              f"{got}")
+    emit({"scl_r1_step_counters": dict(counters, snr_db=SCL_STEP_SNR)})
+    return worst_all
+
+
 def cuda_ms(fn, reps, warmup=1):
     """Mean milliseconds per call of fn on the card, by CUDA events, and
     the output of the last warmup call."""
@@ -447,13 +553,15 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(stop) / reps, out
 
 
-def phase_timing(card, name, batch, kernel, plain, reps, compare, **info):
+def phase_timing(card, name, batch, kernel, plain, reps, compare, also=None,
+                 **info):
     """Times at one main path's shape: kernel(llr, frozen) and its plain
-    version in turn (plain, kernel, kernel, plain), the kernel's output held
-    against the plain version's there by compare(got, want, u), then the
-    whole frame step (with its peak memory) and its encode and channel
-    stages apart; returns (kernel ms, plain ms, compare's largest |kernel -
-    plain|)."""
+    version in turn (plain, kernel, kernel, plain; each function of `also`,
+    {key: fn(llr, frozen)}, after the first kernel turn and before the
+    second), the kernel's output held against the plain version's there by
+    compare(got, want, u, name), then the whole frame step (with its peak
+    memory) and its encode and channel stages apart; returns (kernel ms,
+    plain ms, compare's largest |kernel - plain|)."""
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.ops.channel import (awgn_llr, fold_in,
                                                      frame_keys, prng_key,
@@ -465,12 +573,19 @@ def phase_timing(card, name, batch, kernel, plain, reps, compare, **info):
 
     llr, frozen, u = llr_frames(name, batch, MAIN_SNR, DEVICE)
     plain_ms, kernel_ms, outs = [], [], {}
-    for fn, acc, r in ((plain, plain_ms, 1), (kernel, kernel_ms, reps),
-                       (kernel, kernel_ms, reps), (plain, plain_ms, 1)):
+    also = also or {}
+    also_ms = {k: [] for k in also}
+    turns = ([(plain, plain_ms, 1), (kernel, kernel_ms, reps)]
+             + [(fn, also_ms[k], reps) for k, fn in also.items()]
+             + [(fn, also_ms[k], reps) for k, fn in reversed(also.items())]
+             + [(kernel, kernel_ms, reps), (plain, plain_ms, 1)])
+    for fn, acc, r in turns:
         ms, out = cuda_ms(functools.partial(fn, llr, frozen), r)
         acc.append(ms)
-        outs.setdefault(fn, out)
-    worst = compare(outs[kernel], outs[plain], u)
+        if fn in (kernel, plain):
+            outs.setdefault(fn, out)
+        del out
+    worst = compare(outs[kernel], outs[plain], u, name)
     p = preset(name)
     step = make_frame_step(p, batch, DEVICE)
     key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
@@ -492,7 +607,7 @@ def phase_timing(card, name, batch, kernel, plain, reps, compare, **info):
                             STEP_REPS)
     k, pl = statistics.mean(kernel_ms), statistics.mean(plain_ms)
     emit({"timing": dict(
-        {"card": card, "preset": name, "batch": batch}, **info,
+        {"card": card, "preset": name, "batch": batch}, **info, **also_ms,
         kernel_ms=kernel_ms, plain_ms=plain_ms,
         kernel_fps=batch / k * 1e3, plain_fps=batch / pl * 1e3,
         step_ms=step_ms, step_fps=batch / step_ms * 1e3,
@@ -502,13 +617,13 @@ def phase_timing(card, name, batch, kernel, plain, reps, compare, **info):
     return k, pl, worst
 
 
-def bp_timing_compare(got, want, u):
+def bp_timing_compare(got, want, u, name):
     """BP's u_hat from the kernel against the plain version's on every frame
     of the main path's decode; returns the largest |difference|."""
     check(got.dtype == torch.int8 and got.shape == want.shape,
           f"kernel output {got.dtype} {tuple(got.shape)}")
     equal = (got == want).all(dim=1)
-    rec = {"compare": {"preset": MAIN_PRESET, "snr_db": MAIN_SNR,
+    rec = {"compare": {"preset": name, "snr_db": MAIN_SNR,
                        "flavor": "minsum_lut", "early_stop_every": 0,
                        "frames": got.shape[0], "frames_equal": int(equal.sum()),
                        "plain_correct": int((want == u).all(dim=1).sum())}}
@@ -517,7 +632,7 @@ def bp_timing_compare(got, want, u):
     return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
 
 
-def scl_timing_compare(got, want, u):
+def scl_timing_compare(got, want, u, name):
     """SCL's u_all, PM and ties from the kernel against the plain version's on
     every frame of the main path's decode; returns the largest
     |difference|."""
@@ -525,7 +640,7 @@ def scl_timing_compare(got, want, u):
     best = torch.argmin(want[1], dim=-1)
     u_hat = torch.take_along_dim(want[0], best[:, None, None], dim=1)[:, 0]
     frames = u.shape[0]
-    rec = {"scl_compare": {"preset": SCL_PRESET, "snr_db": MAIN_SNR,
+    rec = {"scl_compare": {"preset": name, "snr_db": MAIN_SNR,
                            "L": want[1].shape[1], "frames": frames,
                            "frames_equal": equal,
                            "plain_correct": int((u_hat == u).all(dim=1).sum()),
@@ -972,27 +1087,46 @@ def mc_channel_work(B, N):
     return (B * 4 + 128 * N * 4 + B * N * 4, *noise_work(B * N))
 
 
-def scl_work(B, N, L, frozen):
+def scl_work(B, N, L, frozen, r1=0):
     """Bytes and operations that SCL decoding on this frozen mask needs: LLRs
     and mask in, u_all, PM and ties out.  Per path and bit j, with t =
     ntz(j) (n at j = 0) and t1 = ntz(j + 1): the g-node at stage t (a
     product and an add per element), a CHK per f-node element below it,
     PHI (one penalty at a frozen bit, both at an info bit), and the 2^t1 - 1
     partial-sum xors of the bit phase.  Per info bit, the L smallest of 2L
-    candidates in a stable order take about 2L log2(2L) compares."""
+    candidates in a stable order take about 2L log2(2L) compares.  With
+    r1 > 0, an R1 node of stage s (width w) replaces its leaves' f/g chains
+    below s, PHI and forks, per path, by |alpha| and its sign (2w), t =
+    min(L-1, w) argmin passes of a compare and a select per element (2tw),
+    t flips and the transform's s·w/2 xors; and by t forks of 2L adds and
+    the selection's compares."""
+    from polardecoding_tpu_torch.models.scl_fast import r1_stages
+
     n = N.bit_length() - 1
+    stages = r1_stages(frozen, r1, WLOOP)
     per_path, select = 0, 0
-    for j, is_frozen in enumerate(frozen):
+    j = 0
+    while j < N:
         t = n if j == 0 else (j & -j).bit_length() - 1
-        t1 = min(((j + 1) & -(j + 1)).bit_length() - 1, n)
+        s = stages[j]
+        w = 1 << s
+        last = j + (w if s else 1) - 1
+        t1 = min(((last + 1) & -(last + 1)).bit_length() - 1, n)
         if t < n:
             per_path += 2 * (1 << t)
-        per_path += ((1 << t) - 1) * CHK_OPS
-        per_path += PHI_BASE_OPS + PHI_PEN_OPS * (1 if is_frozen else 2)
+        per_path += ((1 << t) - (1 << s)) * CHK_OPS
         if t1 < n:
             per_path += (1 << t1) - 1
-        if not is_frozen:
+        if s:
+            forks = min(L - 1, w)
+            per_path += 2 * w + 2 * forks * w + forks + s * w // 2
+            select += forks * (2 * L + 2 * L * ((2 * L).bit_length() - 1))
+            j += w
+            continue
+        per_path += PHI_BASE_OPS + PHI_PEN_OPS * (1 if frozen[j] else 2)
+        if not frozen[j]:
             select += 2 * L * ((2 * L).bit_length() - 1)
+        j += 1
     nbytes = B * N * 4 + N + B * L * N + B * L * 4 + B * 4
     return nbytes, B * (L * per_path + select)
 
@@ -1016,11 +1150,15 @@ def main() -> int:
     phase_build(_build)
     bp_worst = phase_compare()
     scl_worst = phase_scl_compare()
+    r1_worst = phase_scl_r1_compare()
     counts = {
         "bp_decode": phase_main(MAIN_PRESET, MAIN_BATCH, MAIN_ERROR_BLOCKS,
                                 BLER_RANGE, "bp_decode"),
         "scl_decode": phase_main(SCL_PRESET, SCL_BATCH, SCL_ERROR_BLOCKS,
                                  SCL_BLER_RANGE, "scl_decode")}
+    r1_counts = {name: phase_main(name, SCL_BATCH, blocks, bler, "scl_decode_r1")
+                 for name, blocks, bler in R1_MAIN_PATHS}
+    counts["scl_decode_r1"] = r1_counts[R1_PRESET]
     wave_worst = phase_wave_compare()
     counts["bp_wave_fused"] = phase_wave_main(
         f"{WAVE_PRESET} run_point (fused wave engine, K={WAVE_ITERS})",
@@ -1054,12 +1192,25 @@ def main() -> int:
                                    return_ties=True),
         SCL_KERNEL_REPS, scl_timing_compare, L=L)
     times["scl_decode"] = (scl_ms, scl_plain_ms, max(scl_worst, worst))
+    L = preset(R1_PRESET).decoder.list_size
+    r1 = preset(R1_PRESET).decoder.scl_r1
+    r1_ms, r1_plain_ms, worst = phase_timing(
+        card, R1_PRESET, SCL_BATCH,
+        lambda llr, fr: scl_decode_cuda(llr, fr, L, r1=r1, wloop=WLOOP),
+        lambda llr, fr: scl_decode(llr, fr, list_size=L, return_all=True,
+                                   return_ties=True, r1=r1, wloop=WLOOP),
+        SCL_KERNEL_REPS, scl_timing_compare,
+        also={"exact_kernel_ms": lambda llr, fr: scl_decode_cuda(llr, fr, L)},
+        L=L, r1=r1, wloop=WLOOP)
+    times["scl_decode_r1"] = (r1_ms, r1_plain_ms, max(r1_worst, worst))
     for name, (ms, plain_ms, worst) in phase_wave_timing(card).items():
         times[name] = (ms, plain_ms, max(wave_worst[name], worst))
     phase_profile(card, MAIN_PRESET, MAIN_BATCH,
                   frame_step_runner(MAIN_PRESET, MAIN_BATCH))
     phase_profile(card, SCL_PRESET, SCL_BATCH,
                   frame_step_runner(SCL_PRESET, SCL_BATCH))
+    phase_profile(card, R1_PRESET, SCL_BATCH,
+                  frame_step_runner(R1_PRESET, SCL_BATCH))
     phase_profile(card, f"{WAVE_PRESET} fused wave step", WAVE_BATCH,
                   wave_runner(WAVE_PRESET, make_wave_step, wave_iters=WAVE_ITERS))
     mc = wave_runner(MC_PRESET, make_wave_step_mc, wave_iters=MC_ITERS,
@@ -1077,12 +1228,13 @@ def main() -> int:
     bounds = {
         "bp_decode": bp_work(MAIN_BATCH, N, 100),
         "scl_decode": scl_work(SCL_BATCH, N, p.decoder.list_size, frozen),
+        "scl_decode_r1": scl_work(SCL_BATCH, N, L, frozen, r1=r1),
         "bp_wave_fused": wave_work(WAVE_BATCH, N, WAVE_ITERS, True),
         "bp_wave": wave_work(WAVE_BATCH, N, WAVE_ITERS, False),
         "bp_wave_mc": mc_wave_work(WAVE_BATCH, N, MC_ITERS, refills),
         "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N)}
     lines = []
-    for name, (mod, key) in kernels().items():
+    for name, (mod, _, key) in kernels().items():
         ms, plain_ms, worst = times[name]
         b_ms, b_by = bound(*bounds[name])
         lines.append({

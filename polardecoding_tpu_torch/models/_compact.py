@@ -55,17 +55,19 @@ def _stage_src(llr_c, ch, i: int, n: int):
     return _read(llr_c, i + 1)
 
 
-def llr_phase(llr_c, bits_c, ch, t: int, n: int):
+def llr_phase(llr_c, bits_c, ch, t: int, n: int, stop: int = 0):
     """All LLR recomputation for one bit given t = ntz(j) (t = n for j = 0):
     g-node at stage t (lower half: partner bits saved in bit slot t), then
-    f-nodes (CHK) at stages t-1 .. 0 (ref: SC_128.c:344-365)."""
+    f-nodes (CHK) at stages t-1 .. stop (ref: SC_128.c:344-365).  stop > 0
+    ends the descent at the input of a node of that stage starting at bit
+    j."""
     if t < n:
         src = _stage_src(llr_c, ch, t, n)
         w = 1 << t
         up, lo = src[..., :w], src[..., w:]
         sgn = (1 - 2 * _read(bits_c, t)).to(src.dtype)
         _write(llr_c, t, lo + sgn * up)
-    for i in range(t - 1, -1, -1):
+    for i in range(t - 1, stop - 1, -1):
         src = _stage_src(llr_c, ch, i, n)
         w = 1 << i
         _write(llr_c, i, chk(src[..., :w], src[..., w:]))
@@ -77,8 +79,15 @@ def bit_phase(bits_c, u, t1: int, n: int):
     [saved_upper ^ v, v] upward through t1 stages, then save the result as the
     next pending upper half (ref: SC_128.c:367-392).  `u` has the leading
     shape of bits_c (int8)."""
-    v = u[..., None]
-    for i in range(t1):
+    return block_phase(bits_c, u[..., None], t1, n)
+
+
+def block_phase(bits_c, x, t1: int, n: int):
+    """bit_phase after a node of stage s whose decided code block x [..., 2^s]
+    (int8) ends at bit j, t1 = ntz(j+1) >= s: combine upward from stage s
+    (s = 0: one bit)."""
+    v = x
+    for i in range(x.shape[-1].bit_length() - 1, t1):
         v = torch.cat([_read(bits_c, i) ^ v, v], dim=-1)
     if t1 < n:
         _write(bits_c, t1, v)

@@ -26,9 +26,12 @@ noise="kernel" (default: the counter generator of the TPU kernels) or
 "threefry" (jax.random.bits, what the JAX package draws off the TPU); it
 does not change with the device, so a port run never depends on it.
 
-Out of this slice (each raises NotImplementedError): the approximate rate-1
-SCL flavor, scl_r1 > 0 (ROADMAP B2-r1), and decoder kind "bpr" (ROADMAP
-A8).  There is no multi-device path yet (ROADMAP A9).
+Presets with scl_r1 > 0 (the _FASTR1 ones) decode with the approximate
+rate-1 SCL flavor on every device; the JAX package decodes them so only
+through its TPU kernel, and exact elsewhere.
+
+Out of this slice: decoder kind "bpr" (ROADMAP A8) raises
+NotImplementedError.  There is no multi-device path yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -60,7 +63,12 @@ from polardecoding_tpu_torch.models.bp import (
     wave_init_state,
     wave_merge,
 )
-from polardecoding_tpu_torch.models.scl import cascl_decode, sc_decode_auto, scl_decode_auto
+from polardecoding_tpu_torch.models.scl import (
+    cascl_decode,
+    default_wloop,
+    sc_decode_auto,
+    scl_decode_auto,
+)
 from polardecoding_tpu_torch.ops.channel import (
     awgn_llr,
     fold_in,
@@ -161,22 +169,20 @@ def _make_decoder(preset: Preset, tables: CodeTables, engine: str) -> Callable:
         return lambda llr: (bp_decode_auto(
             llr, frozen, iters=dec.bp_iters, flavor=dec.bp_flavor,
             early_stop_every=es, engine=engine), None)
-    if dec.scl_r1 > 0:
-        raise NotImplementedError(
-            f"{preset.name}: the approximate rate-1 SCL flavor (scl_r1="
-            f"{dec.scl_r1}) is not ported yet (ROADMAP B2-r1)")
     if dec.kind == "sc":
         return lambda llr: (sc_decode_auto(llr, frozen, engine=engine),
                             None)
+    flavor = dict(r1=dec.scl_r1,
+                  wloop=default_wloop(code.N.bit_length() - 1, dec.list_size))
     if dec.kind == "scl":
         return lambda llr: scl_decode_auto(
             llr, frozen, list_size=dec.list_size, return_ties=True,
-            engine=engine)
+            engine=engine, **flavor)
     if dec.kind == "cascl":
         crc_R = check_matrix(code.crc, code.num_info)
         return lambda llr: cascl_decode(
             llr, frozen, tables.info_set, crc_R, list_size=dec.list_size,
-            return_ties=True, engine=engine)
+            return_ties=True, engine=engine, **flavor)
     raise NotImplementedError(
         f"decoder kind {dec.kind!r} has no frame step in the port "
         "(BPr is ROADMAP A8)")

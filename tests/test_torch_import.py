@@ -140,6 +140,38 @@ def test_scl_kernel_equals_plain_on_card(N, L):
         assert g.shape == w.shape and (g == w).all()
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,L,r1,mask", [(32, 4, 2, "all-info"),
+                                         (128, 8, 4, "5g"), (1024, 1, 4, "5g"),
+                                         (1024, 8, 4, "5g"), (1024, 16, 4, "5g"),
+                                         (1024, 32, 2, "5g")])
+def test_scl_r1_kernel_equals_plain_on_card(N, L, r1, mask):
+    """On a card: the list-decode kernel's rate-1 flavor bit-equal to the
+    plain flavor (u_all, PM, ties) on every frame, counted once as a flavor
+    launch and not as an exact one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.scl import scl_decode, scl_decode_auto
+    from polardecoding_tpu_torch.ops import scl_kernel
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask
+
+    rng = np.random.default_rng(N + L + r1)
+    llr = torch.as_tensor((rng.normal(size=(32, N)) * 3).astype(np.float32),
+                          device="cuda")
+    fr = np.zeros(N, bool) if mask == "all-info" else frozen_mask(N, N // 2)
+    frozen = torch.as_tensor(fr, device="cuda")
+    launches = (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1)
+    got = scl_decode_auto(llr, frozen, list_size=L, return_all=True,
+                          return_ties=True, r1=r1)
+    want = scl_decode(llr, frozen, list_size=L, return_all=True,
+                      return_ties=True, r1=r1)
+    torch.cuda.synchronize()
+    assert (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1) == (launches[0],
+                                                            launches[1] + 1)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and (g == w).all()
+
+
 def _wave_inputs(N, B, seed):
     """A wave state on the card after 8 iterations of random LLRs, fresh
     LLRs and a random retire mask."""

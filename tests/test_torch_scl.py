@@ -206,7 +206,8 @@ def test_run_point_equals_jax_scl():
 def test_scl_routes():
     """A CPU tensor runs the plain version, engine="plain" forces it, the
     kernel's wrapper refuses a CPU tensor rather than falling back, unknown
-    engines raise, and the rate-1 presets' frame step raises."""
+    engines raise, and the rate-1 presets build a CPU frame step (the plain
+    flavor) with plausible counters."""
     fr = torch.as_tensor(frozen_mask(32, 16))
     llr = torch.as_tensor(_llr(4, 32, seed=1))
     with pytest.raises(ValueError, match="CUDA"):
@@ -218,9 +219,14 @@ def test_scl_routes():
     assert (a == b).all()
     assert (tscl.sc_decode_auto(llr, fr, engine="plain")
             == tscl.sc_decode_auto(llr, fr)).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        scl_kernel.scl_decode_cuda(llr, fr, 4, r1=4)
+    launches = (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1)
     for name in ("SCL_1024_L8_FASTR1", "CASCL_1024_L8_FASTR1"):
-        with pytest.raises(NotImplementedError, match="B2-r1"):
-            th.make_frame_step(tcfg.preset(name), 8, "cpu")
+        step = th.make_frame_step(tcfg.preset(name), 4, "cpu")
+        eb, ebl, ties = (int(c) for c in step(prng_key(9), 0, 10.0 ** -0.05))
+        assert 0 <= ebl <= 4 and eb >= ebl and 0 <= ties <= 4
+    assert (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1) == launches
 
 
 def test_cli_run_takes_cascl(capsys):
