@@ -66,13 +66,33 @@
 10. traces three steps of each of the five paths with torch.profiler: wall
    and device time per step, the device's idle share, the device operations
    per step and the kernels that take the most time;
-11. prints the kernels line (each kernel's launches on its main path, its
+11. holds the probe kernels (the ports of the TPU probes) against their
+   plain versions on the card, bit for bit, the floor's outputs written over
+   buffers filled with 90 so that a store left out shows: the floor
+   kernel's variants at the SCL main path's shape (N=1024, L=8, B=16384;
+   bare and init with three outputs, bare, noscratch, no_u, u_i32 and no_in
+   with two), ten launches back to back and a CUDA graph of twenty; the
+   three probes' bare bodies at the drivers' other batches (512 to 65536);
+   each operation pattern at the driver's shapes (gather at L=8 and 32,
+   gather_rows on 8, 32 and 128 rows, lut on 8 and 32, rank at L=8 and 32,
+   chk on 8 and 64) after 7 iterations on one tile and on 8 per SM;
+12. runs the four probe drivers (scripts/torch_probe_floor{,2,3}.py,
+   scripts/torch_microbench_rolls.py) at short settings in this process,
+   each with the launch counts at 0: each must exit 0, print its lines and
+   launch its kernel.  Each probe's time in the kernels line is its
+   driver's (PROBE_TIMES, MB_TIME), beside its plain version's at the same
+   shape timed here; the SCL floor's share of the SCL kernel's two modes;
+13. runs the benchmark entry points at their defaults with the launch counts
+   at 0: polardecoding_tpu_torch.bench.main() must print bench.py's keys,
+   every leg a positive rate, value the worse of the wave and SCL legs, and
+   launch each leg's kernel; `cli bench` must print its preset and rate;
+14. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
    the card's rate for float32 adds, compares and selects, and the integer
-   ones among them over 16.7e12, its INT32 rate), then
-   {"ok": true, "device": {...}} last.
+   ones among them over 16.7e12, its INT32 rate; a probe's launches are
+   those of its driver's run), then {"ok": true, "device": {...}} last.
 
 Any failed phase raises and exits non-zero; without a CUDA device, or
 without the package beside this file, it exits non-zero before printing a
@@ -82,12 +102,17 @@ from __future__ import annotations
 
 import functools
 import json
+import contextlib
+import io
+import os
+import runpy
 import statistics
-import subprocess
 import sys
 import time
 
 import torch
+
+from polardecoding_tpu_torch.utils.card import card_line, cuda_ms
 
 # shapes of each phase; the main path's are those of the JAX package's
 # bench.py fixed-iteration BP leg
@@ -191,6 +216,53 @@ THREEFRY_INT_OPS = 1 + 20 * 3 - 2 + 9
 # product with x (1) and the LLR's sign select, fmaf and product (4)
 LLR_INT_OPS = 1 + 3
 LLR_OPS = 5 + 3 + 23 + 1 + 5 + 17 + 1 + 4
+# the probes (TPU kernels 9-12): the floors at the SCL main path's shape
+# (N=1024, L=8, B=SCL_BATCH), row 9 with the leaf table and three outputs,
+# rows 10 and 11 with two; (row, variant, switches)
+PROBE_N, PROBE_L = 1024, 8
+FLOOR_CASES = (("probe_floor", "bare", {}), ("probe_floor", "init", {"init": True}),
+               ("probe_floor2", "bare", {"ties": False}),
+               ("probe_floor2", "noscratch", {"scratch": False, "ties": False}),
+               ("probe_floor2", "no_u", {"u_rows": 1, "ties": False}),
+               ("probe_floor2", "u_i32", {"u_dtype": torch.int32, "ties": False}),
+               ("probe_floor2", "no_in", {"dma_in": False, "ties": False}))
+# probe_floor3's body (no scratch, two outputs), its burst and graph sizes
+FLOOR3 = {"scratch": False, "ties": False}
+FLOOR3_BURST, FLOOR3_GRAPH = 10, 20
+# the drivers' other batches, at which rows 9-11's bare bodies are compared
+FLOOR_BATCHES = (512, 2048, 8192, 65536)
+PROBE_REPS = 10
+# the patterns (kind, L, rows) the driver runs, at 7 iterations, where the
+# values are still far from 0, on one tile and on 8 per SM
+MB_CASES = (("gather", 8, 1), ("gather", 32, 1), ("gather_rows", 8, 8),
+            ("gather_rows", 8, 32), ("gather_rows", 8, 128), ("lut", 8, 8),
+            ("lut", 8, 32), ("rank", 8, 1), ("rank", 32, 1), ("chk", 8, 8),
+            ("chk", 8, 64))
+MB_CMP_ITERS = 7
+MB_TIME_ITERS = 1000
+# the four probe drivers at short settings: (kernel, script, argv)
+PROBE_RUNS = (("probe_floor", "torch_probe_floor.py",
+               [str(PROBE_N), str(PROBE_L), str(SCL_BATCH), "20", "3"]),
+              ("probe_floor2", "torch_probe_floor2.py", ["20", "3"]),
+              ("probe_floor3", "torch_probe_floor3.py", ["20", "3"]),
+              ("microbench_rolls", "torch_microbench_rolls.py",
+               ["--iters", str(MB_TIME_ITERS)]))
+# each floor's time in the kernels line, per launch in a CUDA graph, from its
+# driver's line: {kernel: (the line's fields, its time's key, batch, switches)}
+PROBE_TIMES = {
+    "probe_floor": ({"variant": "bare", "B": SCL_BATCH}, "graph_ms_per_call",
+                    SCL_BATCH, {}),
+    "probe_floor2": ({"variant": "bare", "blocks": 8192}, "graph_ms_per_call",
+                     8192, {"ties": False}),
+    "probe_floor3": ({"variant": "C64_scan20"}, "ms_per_inner_call", 8192,
+                     FLOOR3)}
+# the patterns' time: gather_rows on 8 rows at L=8, 8 tiles per SM
+MB_TIME = ("gather_rows", 8, 8)
+# the keys of the JAX package's bench.py line (bench.py:266-289)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "bp_1024_wave_fps",
+              "wave_preset", "wave_engine", "wave_itermax",
+              "bp_1024_fixed100_fps", "scl_preset", "scl_fps",
+              "scl_1024_l8_fps", "vs_baseline_fixed_iters"}
 
 
 def check(cond, msg):
@@ -207,6 +279,7 @@ def kernels():
     in a dict-valued attribute or None)}."""
     from polardecoding_tpu_torch.ops import (bp_kernel, bp_wave_kernel,
                                              bp_wave_mc_kernel, channel_kernel,
+                                             microbench_kernel, probe_kernel,
                                              scl_kernel)
 
     return {"bp_decode": (bp_kernel, "LAUNCHES", None),
@@ -215,7 +288,13 @@ def kernels():
             "bp_wave_fused": (bp_wave_kernel, "LAUNCHES", "bp_wave_fused"),
             "bp_wave": (bp_wave_kernel, "LAUNCHES", "bp_wave"),
             "bp_wave_mc": (bp_wave_mc_kernel, "LAUNCHES", None),
-            "mc_channel": (channel_kernel, "LAUNCHES", None)}
+            "mc_channel": (channel_kernel, "LAUNCHES", None),
+            # one floor kernel serves the three floor probes; each probe
+            # path is driven alone, so the one count reads each
+            "probe_floor": (probe_kernel, "LAUNCHES", None),
+            "probe_floor2": (probe_kernel, "LAUNCHES", None),
+            "probe_floor3": (probe_kernel, "LAUNCHES", None),
+            "microbench_rolls": (microbench_kernel, "LAUNCHES", None)}
 
 
 def reset_counts():
@@ -230,13 +309,6 @@ def launches(name) -> int:
     mod, attr, key = kernels()[name]
     count = getattr(mod, attr)
     return count if key is None else count[key]
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60).stdout
-    return out.strip().splitlines()[0]
 
 
 def phase_build(_build):
@@ -535,22 +607,6 @@ def phase_scl_r1_compare():
               f"{got}")
     emit({"scl_r1_step_counters": dict(counters, snr_db=SCL_STEP_SNR)})
     return worst_all
-
-
-def cuda_ms(fn, reps, warmup=1):
-    """Mean milliseconds per call of fn on the card, by CUDA events, and
-    the output of the last warmup call."""
-    for _ in range(warmup):
-        out = fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    stop.synchronize()
-    return start.elapsed_time(stop) / reps, out
 
 
 def phase_timing(card, name, batch, kernel, plain, reps, compare, also=None,
@@ -1031,6 +1087,238 @@ def phase_wave_timing(card):
     return out
 
 
+def probe_inputs(B):
+    """The floors' inputs at (B, PROBE_N): LLRs from a seed and the SCL
+    main path's leaf table (its frozen mask, exact mode)."""
+    import numpy as np
+
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.parallel.harness import code_tables
+
+    rng = np.random.default_rng(9)
+    ch = torch.as_tensor(rng.normal(size=(B, PROBE_N)).astype(np.float32) * 2,
+                         device=DEVICE)
+    leaf = code_tables(preset(SCL_PRESET).code, DEVICE).frozen.to(torch.uint8)
+    return ch, leaf
+
+
+def tiles(copies, rows, seed=0):
+    import numpy as np
+
+    return torch.as_tensor(np.random.default_rng(seed).normal(
+        size=(copies, rows, 8, 128)).astype(np.float32), device=DEVICE)
+
+
+def outputs_diff(got, want):
+    """(bit-equal, largest |kernel - plain|) over tuples of outputs, None
+    entries matching None."""
+    equal, worst = True, 0.0
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), "kernel and plain outputs differ in count")
+        if g is None:
+            continue
+        check(g.dtype == w.dtype and g.shape == w.shape,
+              f"kernel output {g.dtype} {tuple(g.shape)}, plain {w.dtype} "
+              f"{tuple(w.shape)}")
+        equal &= bool(_same(g, w).all())
+        worst = max(worst, float((g.double() - w.double()).abs().max()))
+    return equal, worst
+
+
+def phase_probe_compare():
+    """The floor kernel's variants at the SCL main path's shape, its burst
+    and its graph, the bare bodies at FLOOR_BATCHES, and each pattern on one
+    tile and on 8 per SM, against their plain versions; the floor writes
+    over buffers filled with 90.  Returns {kernel: largest |kernel -
+    plain|}."""
+    from polardecoding_tpu_torch.ops import microbench_kernel as mk
+    from polardecoding_tpu_torch.ops.probe_kernel import (floor_burst,
+                                                          floor_cuda,
+                                                          floor_graph,
+                                                          floor_plain)
+
+    worst = dict.fromkeys(("probe_floor", "probe_floor2", "probe_floor3",
+                           "microbench_rolls"), 0.0)
+
+    def record(kernel, rec, equal, err):
+        emit({"probe_compare": dict(rec, kernel=kernel, equal=equal,
+                                    max_abs_err=err)})
+        check(equal and err == 0, f"kernel != plain: {rec}")
+        worst[kernel] = max(worst[kernel], err)
+
+    def dirty(want):
+        return tuple(None if w is None else torch.full_like(w, 90) for w in want)
+
+    def floor_case(row, variant, ch, lf, kw):
+        want = floor_plain(ch, lf, PROBE_L, **kw)
+        got = floor_cuda(ch, lf, PROBE_L, out=dirty(want), **kw)
+        torch.cuda.synchronize()
+        record(row, {"variant": variant, "batch": ch.shape[0]},
+               *outputs_diff(got, want))
+
+    # the first rows of one draw: every batch's LLRs start alike
+    ch_all, leaf = probe_inputs(max(FLOOR_BATCHES + (SCL_BATCH,)))
+    ch = ch_all[:SCL_BATCH]
+    for row, variant, kw in FLOOR_CASES:
+        floor_case(row, variant, ch, leaf if row == "probe_floor" else None, kw)
+    for B in FLOOR_BATCHES:
+        for row, kw in (("probe_floor", {}), ("probe_floor2", {"ties": False}),
+                        ("probe_floor3", FLOOR3)):
+            floor_case(row, "bare", ch_all[:B],
+                       leaf if row == "probe_floor" else None, kw)
+    want = floor_plain(ch, None, PROBE_L, **FLOOR3)
+    out = dirty(want)
+    burst = floor_burst(FLOOR3_BURST, ch, None, PROBE_L, out=out, **FLOOR3)
+    torch.cuda.synchronize()
+    record("probe_floor3", {"variant": f"x{FLOOR3_BURST}", "batch": SCL_BATCH},
+           *outputs_diff(burst, want))
+    replay = floor_graph(FLOOR3_GRAPH, ch, None, PROBE_L, out=out, **FLOOR3)
+    for t in out:
+        if t is not None:
+            t.fill_(90)
+    got = replay()
+    torch.cuda.synchronize()
+    record("probe_floor3", {"variant": f"graph{FLOOR3_GRAPH}", "batch": SCL_BATCH},
+           *outputs_diff(got, want))
+    del ch_all, ch, want, out, burst, replay, got
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind, L, rows in MB_CASES:
+        for copies in (1, 8 * sms):
+            x = tiles(copies, rows, seed=copies)
+            got = mk.microbench_cuda(kind, x, MB_CMP_ITERS, L)
+            want = mk.microbench_plain(kind, x, MB_CMP_ITERS, L)
+            torch.cuda.synchronize()
+            record("microbench_rolls",
+                   {"pattern": kind, "L": L, "rows": rows, "copies": copies,
+                    "iters": MB_CMP_ITERS,
+                    "max_abs_value": float(want.abs().max())},
+                   *outputs_diff((got,), (want,)))
+    return worst
+
+
+def phase_probe_paths():
+    """Run the four probe drivers at short settings in this process, each
+    with every launch count at 0 just before; each must exit 0, print its
+    JSON lines and launch its kernel.  Returns ({kernel: launches},
+    {kernel: the driver's lines})."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    counts, printed = {}, {}
+    for kernel, script, argv in PROBE_RUNS:
+        path = os.path.join(root, "scripts", script)
+        reset_counts()
+        out, saved = io.StringIO(), sys.argv
+        sys.argv = [path, *argv]
+        code = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(path, run_name="__main__")
+        except SystemExit as e:
+            code = e.code
+        finally:
+            sys.argv = saved
+        torch.cuda.synchronize()
+        counts[kernel] = launches(kernel)
+        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        printed[kernel] = lines
+        emit({"probe_run": {"script": f"scripts/{script}", "argv": argv,
+                            "exit": code, "launches": counts[kernel],
+                            "seconds": time.perf_counter() - t0,
+                            "lines": lines}})
+        check(code == 0 and lines, f"scripts/{script} exited {code}")
+        check(counts[kernel] > 0, f"scripts/{script} launched no {kernel}")
+    return counts, printed
+
+
+def driver_value(lines, fields, key):
+    """`key` of the one driver line that has it and the given fields."""
+    found = [line[key] for line in lines
+             if key in line and all(line.get(k) == v for k, v in fields.items())]
+    check(len(found) == 1, f"{len(found)} driver lines with {key} and {fields}")
+    return found[0]
+
+
+def floor_work(B, leaf, ties):
+    """Bytes a floor call at (B, PROBE_N, PROBE_L) must move: the LLRs and
+    the table in, int8 u, pm and ties out."""
+    nbytes = B * PROBE_N * 4 + (PROBE_N if leaf else 0)
+    nbytes += B * PROBE_L * PROBE_N + B * PROBE_L * 4 + (B * 4 if ties else 0)
+    return nbytes, 0
+
+
+def phase_probe_timing(card, printed, scl_ms, r1_ms):
+    """Each probe's kernel time from its driver's lines (PROBE_TIMES,
+    MB_TIME) and its plain version's at the same shape, timed here.  Returns
+    {kernel: (ms, plain ms, (bytes, operations))}."""
+    from polardecoding_tpu_torch.ops import microbench_kernel as mk
+    from polardecoding_tpu_torch.ops.probe_kernel import floor_plain
+
+    out = {}
+    for name, (fields, key, B, kw) in PROBE_TIMES.items():
+        ch, leaf = probe_inputs(B)
+        lf = leaf if name == "probe_floor" else None
+        plain_ms, _ = cuda_ms(lambda: floor_plain(ch, lf, PROBE_L, **kw),
+                              PROBE_REPS)
+        out[name] = (driver_value(printed[name], fields, key), plain_ms,
+                     floor_work(B, lf is not None, kw.get("ties", True)))
+        del ch
+
+    kind, L, rows = MB_TIME
+    copies = 8 * torch.cuda.get_device_properties(0).multi_processor_count
+    ms = driver_value(printed["microbench_rolls"],
+                      {"pattern": kind, "L": L, "rows": rows, "copies": copies},
+                      "seconds") * 1e3
+    x = tiles(copies, rows)
+    plain_ms, _ = cuda_ms(lambda: mk.microbench_plain(kind, x, MB_TIME_ITERS, L), 1)
+    # what the function needs per element and iteration: L products and L
+    # sums, and the halving; the TPU count also has a roll and a mask per
+    # term, a shared-memory read and a loop constant here
+    ops = MB_TIME_ITERS * x.numel() * (2 * L + 1)
+    out["microbench_rolls"] = (ms, plain_ms, (2 * x.numel() * 4, ops))
+    floor_ms = out["probe_floor"][0]
+    emit({"probe_timing": {
+        "card": card, "ms": {k: v[0] for k, v in out.items()},
+        "plain_ms": {k: v[1] for k, v in out.items()},
+        "pattern_ops_per_s": ops / ms * 1e3,
+        "pattern_of_ops_per_s": ops / ms * 1e3 / OPS_PER_S,
+        "scl_decode_ms": scl_ms, "scl_decode_r1_ms": r1_ms,
+        "floor_share_of_scl_decode": floor_ms / scl_ms,
+        "floor_share_of_scl_decode_r1": floor_ms / r1_ms}})
+    return out
+
+
+def phase_bench():
+    """bench.main() and `cli bench` at their defaults, the launch counts at
+    0 just before: bench.py's keys, every leg a positive rate, value the
+    worse of the wave and SCL legs, and each leg's kernel launched."""
+    from polardecoding_tpu_torch import bench, cli
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = bench.main([])
+    counts = {k: launches(k) for k in ("bp_decode", "scl_decode",
+                                       "scl_decode_r1", "bp_wave_mc")}
+    emit({"bench_run": {"seconds": time.perf_counter() - t0,
+                        "launches": counts}})
+    check(set(rec) == BENCH_KEYS, f"bench keys {sorted(rec)}")
+    legs = ("bp_1024_wave_fps", "bp_1024_fixed100_fps", "scl_fps",
+            "scl_1024_l8_fps")
+    check(all(isinstance(rec[k], float) and rec[k] > 0 for k in legs),
+          f"bench legs {rec}")
+    check(rec["value"] == min(rec["bp_1024_wave_fps"], rec["scl_fps"]),
+          f"bench value {rec['value']}")
+    check(all(counts.values()), f"bench launches {counts}")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["bench"])
+    line = json.loads(out.getvalue().splitlines()[-1])
+    emit({"cli_bench": line})
+    check(set(line) == {"preset", "frames_per_sec"} and line["frames_per_sec"] > 0,
+          f"cli bench printed {line}")
+    return rec
+
+
 def bound(nbytes, ops, int_ops=0):
     """(ms, "bytes" or "operations"): the least time the card could take to
     move nbytes through HBM and do ops operations, int_ops of them on
@@ -1216,6 +1504,16 @@ def main() -> int:
     mc = wave_runner(MC_PRESET, make_wave_step_mc, wave_iters=MC_ITERS,
                      cadence=MC_CADENCE)
     phase_profile(card, f"{MC_PRESET} MC wave step", WAVE_BATCH, mc)
+    probe_worst = phase_probe_compare()
+    probe_counts, printed = phase_probe_paths()
+    counts.update(probe_counts)
+    probe_bounds = {}
+    for name, (ms, plain_ms, work) in phase_probe_timing(
+            card, printed, times["scl_decode"][0],
+            times["scl_decode_r1"][0]).items():
+        times[name] = (ms, plain_ms, probe_worst[name])
+        probe_bounds[name] = work
+    phase_bench()
     check("jax" not in sys.modules, "the port imported jax")
 
     p = preset(SCL_PRESET)
@@ -1232,14 +1530,15 @@ def main() -> int:
         "bp_wave_fused": wave_work(WAVE_BATCH, N, WAVE_ITERS, True),
         "bp_wave": wave_work(WAVE_BATCH, N, WAVE_ITERS, False),
         "bp_wave_mc": mc_wave_work(WAVE_BATCH, N, MC_ITERS, refills),
-        "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N)}
+        "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N), **probe_bounds}
     lines = []
     for name, (mod, _, key) in kernels().items():
         ms, plain_ms, worst = times[name]
         b_ms, b_by = bound(*bounds[name])
         lines.append({
             "name": name, "route": "cuda", "source": mod.SOURCE,
-            "replaces": mod.REPLACES if key is None else mod.REPLACES[key],
+            "replaces": (mod.REPLACES[name] if isinstance(mod.REPLACES, dict)
+                         else mod.REPLACES),
             "launches": counts[name], "max_abs_err": worst,
             "matches_plain": worst == 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})

@@ -1,12 +1,15 @@
-"""Command-line sweep driver of the port (the JAX package's cli `run` and
-`presets` subcommands), with structured JSON results.
+"""Command-line driver of the port (the JAX package's cli `run`, `bench`
+and `presets` subcommands), with structured JSON results.
 
   python -m polardecoding_tpu_torch.cli run --preset BP_1024 --snr 1.0 3.0 0.5
   python -m polardecoding_tpu_torch.cli run --preset BP_128 --out bp128.json
+  python -m polardecoding_tpu_torch.cli bench --preset BP_1024 --batch 4096
   python -m polardecoding_tpu_torch.cli presets
 
-`run` computes on the card; `--device cpu` runs the plain PyTorch versions
-instead of the CUDA kernels (slow; for checks at small sizes).
+`run` and `bench` compute on the card; `--device cpu` runs the plain PyTorch
+versions instead of the CUDA kernels (slow; for checks at small sizes).
+`bench` prints {"preset", "frames_per_sec"}: the frame step's frames/s
+(bench.bench_step, 5 steps after 2 of warmup).
 """
 from __future__ import annotations
 
@@ -53,6 +56,13 @@ def cmd_run(args):
     print(text)
 
 
+def cmd_bench(args):
+    from polardecoding_tpu_torch.bench import bench_step
+
+    fps = bench_step(args.preset, args.batch, device=args.device)
+    print(json.dumps({"preset": args.preset, "frames_per_sec": fps}))
+
+
 def cmd_presets(args):
     from polardecoding_tpu_torch.configs import PRESETS
 
@@ -84,6 +94,13 @@ def main(argv=None):
                     help="torch device; 'cpu' runs the plain versions")
     rp.add_argument("-v", "--verbose", action="store_true")
     rp.set_defaults(fn=cmd_run)
+
+    bp = sub.add_parser("bench", help="throughput benchmark")
+    bp.add_argument("--preset", default="BP_1024")
+    bp.add_argument("--batch", type=int, default=4096)
+    bp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions")
+    bp.set_defaults(fn=cmd_bench)
 
     ps = sub.add_parser("presets", help="list named presets")
     ps.set_defaults(fn=cmd_presets)

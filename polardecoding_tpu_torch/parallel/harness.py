@@ -93,6 +93,20 @@ from polardecoding_tpu_torch.utils.pn import PN_PERIOD, pn_sequence
 # wave steps run per counter read-back in run_point_waves, as the JAX
 # package's scan chunk
 SYNC_EVERY = 8
+# frame indices end below 2^32: a frame's key folds in its index as one
+# 32-bit word (ops/channel.fold_in, as jax.random.fold_in, which refuses a
+# larger one), and so does the MC channel's counter (csrc/mc_channel.cu)
+FRAME_LIMIT = 1 << 32
+
+
+def _check_frames(end: int, what: str):
+    """Raise before a frame index reaches FRAME_LIMIT: `end` bounds the
+    indices a step is about to use (exclusive)."""
+    if end > FRAME_LIMIT:
+        raise OverflowError(
+            f"{what}: frame indices up to {end - 1} pass 2^32 - 1; a frame's "
+            "key and the MC channel's counter hold its index in 32 bits, so "
+            "frame 2^32 would repeat frame 0 (lower max_frames)")
 
 
 @dataclasses.dataclass
@@ -135,7 +149,12 @@ class PointResult:
 
 def payload_from_index(frame_index: torch.Tensor, pn: torch.Tensor, K: int):
     """PN-window payload per frame (ref: SC_128.c:179-181, 214-215):
-    payload[b, i] = PN[(m_b + i) % 63], m_b = (frame_index * (K % 63)) % 63."""
+    payload[b, i] = PN[(m_b + i) % 63], m_b = (frame_index * (K % 63)) % 63.
+
+    m_b is computed in int64, as the C rule.  The JAX package computes it in
+    int32, where the product wraps once frame_index * (K % 63) reaches 2^31:
+    from frame 2^28 on at K=512 (K % 63 = 8), its offsets differ from these
+    (frames 2^28 - 2 .. 2^28 + 1: here and in C 49, 57, 2, 10)."""
     m = (frame_index * (K % PN_PERIOD)) % PN_PERIOD
     idx = (m[:, None] + torch.arange(K, device=pn.device)[None, :]) % PN_PERIOD
     return pn[idx]
@@ -259,6 +278,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
         return llr, utab[m].to(torch.int8)
 
     def step(key, frame_start, sigma):
+        _check_frames(frame_start + batch, f"{preset.name} frame step")
         fidx = frame_start + lanes
         if channel == "mc":
             llr, u = mc_llr(key, frame_start, fidx, sigma)
@@ -451,6 +471,7 @@ def make_wave_step_mc(preset: Preset, batch: int, wave_iters: int = 8,
     def init(key, frame_start, sigma):
         # every slot pending: the first wave's head merge fills it; the run
         # key takes frame_start in, so a resumed point draws fresh noise
+        _check_frames(frame_start + 1, f"{preset.name} MC wave engine")
         ckey = tuple(fold_in(key, frame_start).tolist())
         state = wave_init_state(torch.zeros((batch, N), device=device), frozen)
         return state, mc_meta_init(batch, N, K, device), 0, ckey
@@ -539,6 +560,12 @@ def run_point_waves(
 
     pending = None
     while res.errblock < target and res.frames < cap:
+        if engine == "fused":
+            # the slots hold at most `batch` frames past those counted, and
+            # the chunk run meanwhile and this one retire at most
+            # 2 SYNC_EVERY batches more
+            _check_frames(res.frames + batch * (2 * SYNC_EVERY + 1),
+                          f"{preset.name} wave engine")
         total = 0
         for _ in range(SYNC_EVERY):
             carry, out = step(key, sigma, carry)

@@ -55,6 +55,42 @@ def test_every_port_module_imports_without_jax():
     assert loaded.strip() == "[]"
 
 
+# the probe drivers, imported (not run) with JAX and the JAX package refused
+_IMPORT_SCRIPTS = _IMPORT_ALL.split("import polardecoding_tpu_torch as pkg")[0] + """
+import importlib.util, os
+for name in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join("scripts", name + ".py"))
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(m for m in sys.modules if blocked(m)))
+"""
+PROBE_SCRIPTS = ("torch_probe_floor", "torch_probe_floor2", "torch_probe_floor3",
+                 "torch_microbench_rolls")
+
+
+def test_probe_scripts_import_without_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPTS, *PROBE_SCRIPTS],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("script", PROBE_SCRIPTS)
+def test_probe_scripts_exit_nonzero_without_a_card(script):
+    """Each probe driver measures the card: without one it exits 2 and
+    prints no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, os.path.join("scripts", script + ".py")],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device" in out.stderr
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     """With no nvcc on PATH or under CUDA_HOME, finding, building and loading
     a kernel raise BuildError rather than returning."""
@@ -63,7 +99,8 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_libs", {})
     assert _build.sources() == ["bp_decode", "bp_wave", "bp_wave_mc",
-                                "mc_channel", "scl_decode"]
+                                "mc_channel", "microbench_rolls",
+                                "probe_floor", "scl_decode"]
     with pytest.raises(_build.BuildError, match="nvcc"):
         _build.find_nvcc()
     with pytest.raises(_build.BuildError, match="nvcc"):
@@ -282,3 +319,77 @@ def test_mc_channel_kernel_equals_plain_on_card():
         torch.cuda.synchronize()
         assert _same_bits(got, want)
     assert channel_kernel.LAUNCHES == launches + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"init": True}, {"scratch": False},
+                                {"u_rows": 1}, {"u_dtype": torch.int32},
+                                {"dma_in": False}, {"ties": False}])
+def test_floor_kernel_equals_plain_on_card(kw):
+    """On a card: each floor variant's outputs, written over buffers filled
+    with 90 so that a store left out shows, bit-equal to the plain version's
+    zeros, each launch counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.ops import probe_kernel
+
+    B, N, L = 256, 1024, 8
+    ch = torch.randn(B, N, device="cuda")
+    leaf = torch.ones(N, dtype=torch.uint8, device="cuda")
+    want = probe_kernel.floor_plain(ch, leaf, L, **kw)
+    out = tuple(None if w is None else torch.full_like(w, 90) for w in want)
+    launches = probe_kernel.LAUNCHES
+    got = probe_kernel.floor_cuda(ch, leaf, L, out=out, **kw)
+    torch.cuda.synchronize()
+    assert probe_kernel.LAUNCHES == launches + 1
+    for g, o, w in zip(got, out, want):
+        assert (g is None) == (w is None)
+        if g is not None:
+            assert g is o and g.dtype == w.dtype and g.shape == w.shape
+            assert (g == w).all()
+
+
+@pytest.mark.cuda
+def test_floor_burst_and_graph_count_their_launches_on_card():
+    """k back-to-back launches count k; a graph of k launches counts
+    nothing when captured and k per replay."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.ops import probe_kernel
+
+    ch = torch.randn(128, 1024, device="cuda")
+    kw = dict(scratch=False, ties=False)
+    launches = probe_kernel.LAUNCHES
+    probe_kernel.floor_burst(10, ch, None, 8, **kw)
+    assert probe_kernel.LAUNCHES == launches + 10
+    replay = probe_kernel.floor_graph(20, ch, None, 8, **kw)
+    assert probe_kernel.LAUNCHES == launches + 11  # the warm-up launch
+    u, pm, _ = replay()
+    replay()
+    torch.cuda.synchronize()
+    assert probe_kernel.LAUNCHES == launches + 51
+    assert not u.any() and not pm.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,L,rows", [
+    ("gather", 8, 1), ("gather", 32, 1), ("gather_rows", 8, 8),
+    ("gather_rows", 8, 32), ("gather_rows", 8, 128), ("lut", 8, 8),
+    ("lut", 8, 32), ("rank", 8, 1), ("rank", 32, 1), ("chk", 8, 8),
+    ("chk", 8, 64)])
+def test_microbench_kernel_equals_plain_on_card(kind, L, rows):
+    """On a card: each pattern's tiles after 7 iterations bit-equal to the
+    plain version's, with one tile and with 40, each launch counted once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.ops import microbench_kernel as mk
+
+    for copies in (1, 40):
+        x = torch.as_tensor(np.random.default_rng(copies).normal(
+            size=(copies, rows, 8, 128)).astype(np.float32), device="cuda")
+        launches = mk.LAUNCHES
+        got = mk.microbench_cuda(kind, x, 7, L)
+        want = mk.microbench_plain(kind, x, 7, L)
+        torch.cuda.synchronize()
+        assert mk.LAUNCHES == launches + 1
+        assert _same_bits(got, want)
