@@ -19,14 +19,18 @@
    u_all, PM and tie counter bit-equal on every frame at B=512, LLRs from
    the port's channel at 1.0 and 2.0 dB, N in {128, 1024} with the presets'
    masks and L in {1, 2, 8, 16, 32}; a random frozen mask at N=1024 with L=4
-   and L=32 (the traced-mask kernels' contract); a forced-tie input whose
-   tie counter must be non-zero; and the frame-step counters at 1.5 dB equal
+   and L=32 (the traced-mask kernels' contract); the node masks (node_masks:
+   an R0 and a REP node of every width, all-info, random masks at N = 2, 4
+   and 16) at L in {1, 2, 8, 16, 32}, B=128; a forced-tie input whose tie
+   counter must be non-zero; every output written over buffers filled with
+   90, so that a store left out shows; and the frame-step counters at 1.5 dB equal
    with kernel and plain decoder for SCL_1024_L8 (batch 16384),
    CASCL_1024_L8 and SC_1024 (4096) and CASCL_1024_L32 (1024);
 5. the same for the kernel's rate-1 flavor (r1 in {2, 4}, wloop 2, L in
    {1, 2, 4, 8, 16, 32}): the _FASTR1 presets' masks (N=128 and 1024, CRC-24
    included) at 1.0 and 2.0 dB, all-info masks (one R1 node at the root) and
-   random masks at N=32 and 1024, the forced-tie input; and the step
+   random masks at N=32 and 1024, the node masks at r1 in {2, 4}, the
+   forced-tie input, over buffers filled with 90; and the step
    counters at 1.5 dB of SCL_1024_L8_FASTR1 (batch 16384),
    CASCL_1024_L8_FASTR1 and SCL_1024_L16_FASTR1 (4096);
 6. drives each main path with the launch counts at 0: four make_frame_step
@@ -133,6 +137,11 @@ PROFILE_STEPS = 3
 SCL_CMP_PRESETS = ("SCL_128_L8", "SCL_1024_L8")
 SCL_CMP_LISTS = (1, 2, 8, 16, 32)
 SCL_RANDOM_MASK_LISTS = (4, 32)
+# the node masks: every node kind of the kernel's schedule at every width,
+# in both modes, at these list sizes and batch
+NODE_MASK_LISTS = (1, 2, 8, 16, 32)
+NODE_MASK_BATCH = 128
+NODE_MASK_SMALL_NS = (2, 4, 16)
 SCL_STEP_CASES = (("SCL_1024_L8", 16384), ("CASCL_1024_L8", 4096),
                   ("SC_1024", 4096), ("CASCL_1024_L32", 1024))
 # below the main path's 2.0 dB, so that CASCL_1024_L32's 1024 frames hold
@@ -456,6 +465,49 @@ def phase_main(name, batch, error_blocks, bler_range, kernel):
     return count
 
 
+def node_masks():
+    """(label, [N] bool mask) that exercise every node kind of the SCL
+    kernel's schedule at every width: one R0 of width N (all frozen), one
+    REP of width N (only the last bit info), no frozen bit (exact: bit by
+    bit; the flavor: one R1 node at the root), two ladders at N=1024 with an
+    R0 and a REP node of each width from 512 down to 2 between them
+    (ladder_r0 starts with the R0 of width 512, ladder_rep with the REP),
+    a second half that is one R0 or REP node of width 512 (the kernel takes
+    it as two halves), and seeded random masks at N = 2, 4 and 16."""
+    import numpy as np
+
+    def ladder(kind):
+        m = []
+        for s in range(9, 0, -1):
+            blk = [True] * (1 << s)
+            if kind == "rep":
+                blk[-1] = False
+            m += blk
+            kind = "r0" if kind == "rep" else "rep"
+        return np.array(m + [False, False])
+
+    rng = np.random.default_rng(2026)
+    half = rng.random(1024) < 0.5
+    half[512:] = True
+    half_rep = half.copy()
+    half_rep[-1] = False
+    out = [("all-frozen", np.ones(1024, bool)),
+           ("last-info", np.arange(1024) < 1023),
+           ("all-info", np.zeros(1024, bool)),
+           ("ladder_r0", ladder("r0")), ("ladder_rep", ladder("rep")),
+           ("half_r0", half), ("half_rep", half_rep)]
+    out += [(f"random N={N}", rng.random(N) < 0.5) for N in NODE_MASK_SMALL_NS]
+    return out
+
+
+def _scl_out(B, L, N):
+    """Output buffers for scl_decode_cuda(out=...) filled with 90, so that a
+    store the kernel leaves out shows."""
+    return (torch.full((B, L, N), 90, dtype=torch.int8, device=DEVICE),
+            torch.full((B, L), 90.0, device=DEVICE),
+            torch.full((B,), 90, dtype=torch.int32, device=DEVICE))
+
+
 def _scl_diff(got, want):
     """Largest |kernel - plain| over u_all, PM and ties (0 when bit-equal),
     and the frames equal in all three."""
@@ -487,12 +539,14 @@ def phase_scl_compare():
 
     def compare(llr, frozen, L, **rec):
         nonlocal worst_all
-        got = scl_decode_cuda(llr, frozen, L)
+        got = scl_decode_cuda(llr, frozen, L,
+                              out=_scl_out(llr.shape[0], L, llr.shape[1]))
         want = scl_decode(llr, frozen, list_size=L, return_all=True,
                           return_ties=True)
         torch.cuda.synchronize()
         worst, equal = _scl_diff(got, want)
-        rec = {"scl_compare": dict(rec, L=L, frames=llr.shape[0],
+        rec = {"scl_compare": dict(rec, N=llr.shape[1], L=L,
+                                   frames=llr.shape[0],
                                    frames_equal=equal,
                                    tie_frames=int((want[2] > 0).sum()),
                                    max_abs_err=worst)}
@@ -513,6 +567,12 @@ def phase_scl_compare():
     llr, _, _ = llr_frames("SCL_1024_L8", CMP_BATCH, 1.0, DEVICE)
     for L in SCL_RANDOM_MASK_LISTS:
         compare(llr, random_mask, L, preset="random mask N=1024", snr_db=1.0)
+    llr = llr[:NODE_MASK_BATCH]
+    for label, mask in node_masks():
+        N = mask.shape[0]
+        for L in NODE_MASK_LISTS:
+            compare(llr[:, :N].contiguous(), torch.as_tensor(mask, device=DEVICE),
+                    L, preset=f"{label} mask", snr_db=1.0)
     # symmetric +-1 LLRs force exact PM ties at the median
     tie_llr = torch.tensor([1.0, -1.0] * 16, device=DEVICE).repeat(64, 1)
     tie_mask = torch.as_tensor(frozen_mask(32, 20), device=DEVICE)
@@ -555,7 +615,8 @@ def phase_scl_r1_compare():
 
     def compare(llr, frozen, L, r1, **rec):
         nonlocal worst_all
-        got = scl_decode_cuda(llr, frozen, L, r1=r1, wloop=WLOOP)
+        got = scl_decode_cuda(llr, frozen, L, r1=r1, wloop=WLOOP,
+                              out=_scl_out(llr.shape[0], L, llr.shape[1]))
         want = scl_decode(llr, frozen, list_size=L, return_all=True,
                           return_ties=True, r1=r1, wloop=WLOOP)
         torch.cuda.synchronize()
@@ -586,6 +647,14 @@ def phase_scl_r1_compare():
                 for r1 in R1_CMP_R1:
                     compare(llr[:, :N].contiguous(), mask, L, r1,
                             preset=f"{label} mask", snr_db=1.0)
+    llr = llr[:NODE_MASK_BATCH]
+    for label, mask in node_masks():
+        N = mask.shape[0]
+        for L in NODE_MASK_LISTS:
+            for r1 in R1_CMP_R1:
+                compare(llr[:, :N].contiguous(),
+                        torch.as_tensor(mask, device=DEVICE), L, r1,
+                        preset=f"{label} mask", snr_db=1.0)
     tie_llr = torch.tensor([1.0, -1.0] * 16, device=DEVICE).repeat(64, 1)
     tie_mask = torch.as_tensor(frozen_mask(32, 20), device=DEVICE)
     want = compare(tie_llr, tie_mask, 4, 2, preset="forced ties N=32")

@@ -1,8 +1,8 @@
 """Static node decomposition of the SCL code tree on the frozen mask (torch
 port of the host half of polardecoding_tpu/ops/pallas/scl_fast_kernel.py:
-`_Node`, `decompose`, `schedule_stats`), and the per-leaf table through
-which the plain SCL and the CUDA list-decode kernel find the approximate
-rate-1 (R1) nodes.
+`_Node`, `decompose`, `schedule_stats`), the leaf nodes of that tree, which
+the CUDA list-decode kernel's node table is built from, and the per-leaf
+table through which the plain SCL finds the approximate rate-1 (R1) nodes.
 
 The tree collapses maximal aligned all-frozen blocks (R0) and repetition
 blocks (REP), and with r1min > 0 all-info blocks of width >= max(r1min, 2)
@@ -67,21 +67,29 @@ def schedule_stats(frozen: Tuple[bool, ...], wloop: int = 4) -> dict:
     return counts
 
 
+def nodes(frozen, r1min: int = 0, wloop: int = 2) -> list[_Node]:
+    """The leaves of decompose(frozen, n, 0, wloop, r1min) in leaf order:
+    its R0, REP, R1 and LOOP nodes, which tile the N leaves."""
+    frozen = tuple(bool(b) for b in frozen)
+    out: list[_Node] = []
+
+    def walk(nd):
+        if nd.kind == "branch":
+            walk(nd.left)
+            walk(nd.right)
+        else:
+            out.append(nd)
+
+    walk(decompose(frozen, len(frozen).bit_length() - 1, 0, wloop, r1min))
+    return out
+
+
 def r1_stages(frozen, r1min: int, wloop: int) -> list[int]:
     """Per leaf: the stage s of the R1 node whose first leaf it is, else 0
     (an R1 node has width >= 2, so s >= 1).  Empty nodes for r1min = 0."""
-    frozen = tuple(bool(b) for b in frozen)
-    N = len(frozen)
-    stages = [0] * N
-    if not r1min:
-        return stages
-
-    def walk(nd):
-        if nd.kind == "r1":
-            stages[nd.off] = nd.stage
-        elif nd.kind == "branch":
-            walk(nd.left)
-            walk(nd.right)
-
-    walk(decompose(frozen, N.bit_length() - 1, 0, wloop, r1min))
+    stages = [0] * len(frozen)
+    if r1min:
+        for nd in nodes(frozen, r1min, wloop):
+            if nd.kind == "r1":
+                stages[nd.off] = nd.stage
     return stages

@@ -3,9 +3,9 @@ and outputs that decodes nothing (csrc/probe_floor.cu), the port of the TPU
 floor probes scripts/probe_floor.py, probe_floor2.py and probe_floor3.py.
 
 `floor_cuda` (the kernel) and `floor_plain` (its plain version, constant
-outputs) take the switches of those probes' variants: `init` zero-fills the
-shared memory (probe_floor's "init"), `scratch=False` gives the block no
-shared memory beyond the LLR row ("noscratch"), `dma_in=False` never reads
+outputs) take the switches of those probes' variants: `init` zero-fills a
+frame's shared memory (probe_floor's "init"), `scratch=False` gives a frame
+no shared memory beyond its LLR row ("noscratch"), `dma_in=False` never reads
 the LLRs ("no_in"), `u_dtype=torch.int32` ("u_i32"), `u_rows=1` ("no_u"),
 and `ties=False` leaves out the tie counter (the two-output probes).
 `floor_burst` and `floor_graph` are probe_floor3's back-to-back
@@ -26,21 +26,29 @@ REPLACES = {"probe_floor": "scripts/probe_floor.py:77",
             "probe_floor2": "scripts/probe_floor2.py:63",
             "probe_floor3": "scripts/probe_floor3.py:40"}
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
 
 
-def scl_threads(list_size: int) -> int:
-    """Threads per block of csrc/scl_decode.cu at list size L: 32 L in
-    [64, 512] (scl_decode_launch)."""
-    return min(max(32 * list_size, 64), 512)
-
-
-def scl_smem_bytes(N: int, list_size: int) -> int:
-    """Dynamic shared memory of csrc/scl_decode.cu's block in exact mode,
-    from the library's own scl_decode_smem_bytes."""
-    fn = _build.load("scl_decode").scl_decode_smem_bytes
-    fn.restype = ctypes.c_size_t
-    return int(fn(ctypes.c_int(N), ctypes.c_int(list_size), ctypes.c_int(0)))
+def scl_shape(B: int, N: int, list_size: int) -> dict:
+    """csrc/scl_decode.cu's launch shape for B frames at (N, L) in exact mode,
+    from the library's own scl_decode_shape: threads and blocks of the grid,
+    frames per block (a warp each), resident blocks per SM, the block's
+    dynamic shared memory and one frame's part of it."""
+    lib = _build.load("scl_decode")
+    threads, blocks, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = ctypes.c_size_t()
+    rc = lib.scl_decode_shape(B, N, list_size, 0, 0, 0, ctypes.byref(threads),
+                              ctypes.byref(blocks), ctypes.byref(smem),
+                              ctypes.byref(per_sm))
+    if rc != 0:
+        raise _build.LaunchError(f"scl_decode_shape failed ({rc}) at B={B}, "
+                                 f"N={N}, L={list_size}")
+    frame = lib.scl_decode_frame_bytes
+    frame.restype = ctypes.c_size_t
+    return {"threads": threads.value, "blocks": blocks.value,
+            "frames_per_block": threads.value // 32,
+            "blocks_per_sm": per_sm.value, "smem_bytes": smem.value,
+            "frame_bytes": int(frame(N, list_size, 0, 0))}
 
 
 def _check(ch, leaf, list_size, u_dtype, u_rows):
@@ -80,9 +88,9 @@ def floor_plain(ch, leaf=None, list_size: int = 8, *, init: bool = False,
 def floor_cuda(ch, leaf=None, list_size: int = 8, *, init: bool = False,
                scratch: bool = True, dma_in: bool = True, u_dtype=torch.int8,
                u_rows=None, ties: bool = True, out=None):
-    """The floor kernel on the card, one block per frame of ch [B, N] with
-    csrc/scl_decode.cu's threads and (scratch=True) shared memory at
-    (N, list_size); returns floor_plain's outputs, written into `out` (a
+    """The floor kernel on the card over the frames of ch [B, N] with
+    csrc/scl_decode.cu's launch shape at (B, N, list_size): its grid, a warp
+    per frame and (scratch=True) a frame's shared memory; returns floor_plain's outputs, written into `out` (a
     (u, pm, ties) of floor_plain's shapes and types on ch's device) when it
     is given.  Launches on the current stream without synchronising; raises
     on any input the kernel does not take and when the launch is refused."""
@@ -108,15 +116,16 @@ def floor_cuda(ch, leaf=None, list_size: int = 8, *, init: bool = False,
     u, pm, tie = out
     if B == 0:
         return u, pm, tie
-    row_bytes = 4 * N + (N if leaf is not None else 0)
-    smem = scl_smem_bytes(N, list_size) if scratch else 0
+    shape = scl_shape(B, N, list_size)
+    frame = shape["frame_bytes"] if scratch else 0
     if dma_in:
-        smem = max(smem, row_bytes)
+        frame = max(frame, (4 * N + 15) // 16 * 16)
     _build.launch("probe_floor", _ARGTYPES, dev, ch.data_ptr(),
                   None if leaf is None else leaf.data_ptr(), u.data_ptr(),
                   pm.data_ptr(), None if tie is None else tie.data_ptr(), B, N,
                   list_size, u_rows, int(u_dtype == torch.int32),
-                  scl_threads(list_size), smem, int(init), int(dma_in))
+                  shape["threads"], shape["blocks"], frame, int(init),
+                  int(dma_in))
     LAUNCHES += 1
     return u, pm, tie
 

@@ -2,12 +2,12 @@
 """Floor probe of the SCL list-decode kernel on the card, the port of
 scripts/probe_floor.py.
 
-A kernel with csrc/scl_decode.cu's launch shape (one block per frame, its
-threads and dynamic shared memory at (N, L)) and its three outputs (u
-[B, L, N] int8, pm [B, L], ties [B]) that decodes nothing
-(ops/probe_kernel.floor_cuda).  Variant `bare` reads each frame's LLR row and
-the leaf table into shared memory and writes constant outputs; `init` also
-zero-fills all of the block's shared memory.  Their time is the per-call
+A kernel with csrc/scl_decode.cu's launch shape (its grid, one warp per
+frame and a frame's dynamic shared memory at (N, L)) and its three outputs
+(u [B, L, N] int8, pm [B, L], ties [B]) that decodes nothing
+(ops/probe_kernel.floor_cuda).  Variant `bare` reads the leaf table and each
+frame's LLR row into shared memory and writes constant outputs; `init` also
+zero-fills each frame's shared memory.  Their time is the per-call
 floor that no work on the decode's phases can go below.
 
   python scripts/torch_probe_floor.py [N] [L] [B] [iters] [reps]
@@ -36,7 +36,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 from polardecoding_tpu_torch.ops.probe_kernel import (  # noqa: E402
-    floor_cuda, floor_graph, scl_smem_bytes, scl_threads)
+    floor_cuda, floor_graph, scl_shape)
 from polardecoding_tpu_torch.utils.card import card_line, cuda_ms  # noqa: E402
 from polardecoding_tpu_torch.utils.sequences import frozen_mask  # noqa: E402
 
@@ -61,8 +61,7 @@ def main(argv=None) -> int:
                          device="cuda")
     leaf = torch.as_tensor(frozen_mask(N, N // 2).astype(np.uint8),
                            device="cuda")
-    emit({"blocks": B, "threads": scl_threads(L),
-          "smem_bytes": scl_smem_bytes(N, L), "card": card})
+    emit(dict(scl_shape(B, N, L), frames=B, card=card))
 
     def call(kw):
         return floor_cuda(ch, leaf, L, **kw)

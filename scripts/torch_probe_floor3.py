@@ -2,7 +2,7 @@
 """The launch floor on the card, the port of scripts/probe_floor3.py.
 
 The body is probe_floor3's bare_call: ops/probe_kernel.floor_cuda with no
-shared memory beyond the LLR row and two outputs, N=1024, L=8, one block per
+shared memory beyond the LLR row and two outputs, N=1024, L=8, one warp per
 frame; C is the TPU probe's grid size (128 frames per step), so B = 128 C.
   C64, C128, C512  one launch per call at B = 8192, 16384, 65536;
   C4_x10, C64_x10  ten launches back to back on one stream per call

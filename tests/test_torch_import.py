@@ -65,7 +65,7 @@ for name in sys.argv[1:]:
 print(sorted(m for m in sys.modules if blocked(m)))
 """
 PROBE_SCRIPTS = ("torch_probe_floor", "torch_probe_floor2", "torch_probe_floor3",
-                 "torch_microbench_rolls")
+                 "torch_microbench_rolls", "torch_scl_parts")
 
 
 def test_probe_scripts_import_without_jax():
@@ -147,66 +147,88 @@ def test_kernel_equals_plain_on_card(N, flavor, early_stop_every):
     assert got.dtype == torch.int8 and (got == want).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N,L", [(128, 1), (128, 8), (128, 32),
-                                 (1024, 1), (1024, 8), (1024, 32)])
-def test_scl_kernel_equals_plain_on_card(N, L):
-    """On a card: the CUDA list-decode kernel's u_all, PM and tie counter
-    bit-equal to the plain version's on every frame, and the launch counted
-    once."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from polardecoding_tpu_torch.models.scl import scl_decode, scl_decode_auto
-    from polardecoding_tpu_torch.ops import scl_kernel
+def _node_mask(name, N):
+    """A frozen mask of the list-decode kernel's card tests: the 5G mask at
+    rate 1/2, or one that exercises a node kind (at N=1024 unless random):
+    one R0 node of width N, one REP node of width N, all info, two ladders
+    with an R0 and a REP node of every width from 512 to 2 between them,
+    a second half that is one R0 or REP node, a seeded random mask."""
     from polardecoding_tpu_torch.utils.sequences import frozen_mask
 
-    rng = np.random.default_rng(N + L)
-    llr = torch.as_tensor((rng.normal(size=(32, N)) * 3).astype(np.float32),
-                          device="cuda")
-    frozen = torch.as_tensor(frozen_mask(N, N // 2), device="cuda")
-    launches = scl_kernel.LAUNCHES
-    got = scl_decode_auto(llr, frozen, list_size=L, return_all=True,
-                          return_ties=True)
-    want = scl_decode(llr, frozen, list_size=L, return_all=True,
-                      return_ties=True)
-    torch.cuda.synchronize()
-    assert scl_kernel.LAUNCHES == launches + 1
-    assert got[0].dtype == torch.int8 and got[1].dtype == torch.float32
-    assert got[2].dtype == torch.int32
-    for g, w in zip(got, want):
-        assert g.shape == w.shape and (g == w).all()
+    j = np.arange(N)
+    if name == "5g":
+        return frozen_mask(N, N // 2)
+    if name == "random":
+        return np.random.default_rng(N).random(N) < 0.5
+    if name.startswith("ladder"):
+        kind, m = name[7:], []
+        for s in range(9, 0, -1):
+            m += [True] * ((1 << s) - 1) + [kind == "r0"]
+            kind = "r0" if kind == "rep" else "rep"
+        return np.array(m + [False, False])
+    half = (np.random.default_rng(1).random(N) < 0.5) | (j >= N // 2)
+    return {"all-frozen": j >= 0, "last-info": j < N - 1, "all-info": j < 0,
+            "half_r0": half, "half_rep": half & (j < N - 1)}[name]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N,L,r1,mask", [(32, 4, 2, "all-info"),
-                                         (128, 8, 4, "5g"), (1024, 1, 4, "5g"),
-                                         (1024, 8, 4, "5g"), (1024, 16, 4, "5g"),
-                                         (1024, 32, 2, "5g")])
-def test_scl_r1_kernel_equals_plain_on_card(N, L, r1, mask):
-    """On a card: the list-decode kernel's rate-1 flavor bit-equal to the
-    plain flavor (u_all, PM, ties) on every frame, counted once as a flavor
-    launch and not as an exact one."""
+NODE_MASKS = ("all-frozen", "last-info", "all-info", "ladder_r0",
+              "ladder_rep", "half_r0", "half_rep")
+NODE_LISTS = (1, 2, 8, 16, 32)
+
+
+def _scl_card_case(N, L, r1, mask):
+    """The list-decode kernel in one mode against the plain version on the
+    card, through out= buffers filled with 90 (a store left out shows), and
+    the launch counted once in that mode's counter."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
-    from polardecoding_tpu_torch.models.scl import scl_decode, scl_decode_auto
+    from polardecoding_tpu_torch.models.scl import scl_decode
     from polardecoding_tpu_torch.ops import scl_kernel
-    from polardecoding_tpu_torch.utils.sequences import frozen_mask
 
     rng = np.random.default_rng(N + L + r1)
     llr = torch.as_tensor((rng.normal(size=(32, N)) * 3).astype(np.float32),
                           device="cuda")
-    fr = np.zeros(N, bool) if mask == "all-info" else frozen_mask(N, N // 2)
-    frozen = torch.as_tensor(fr, device="cuda")
+    frozen = torch.as_tensor(_node_mask(mask, N), device="cuda")
+    out = (torch.full((32, L, N), 90, dtype=torch.int8, device="cuda"),
+           torch.full((32, L), 90.0, device="cuda"),
+           torch.full((32,), 90, dtype=torch.int32, device="cuda"))
     launches = (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1)
-    got = scl_decode_auto(llr, frozen, list_size=L, return_all=True,
-                          return_ties=True, r1=r1)
+    got = scl_kernel.scl_decode_cuda(llr, frozen, L, r1=r1, out=out)
     want = scl_decode(llr, frozen, list_size=L, return_all=True,
                       return_ties=True, r1=r1)
     torch.cuda.synchronize()
-    assert (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1) == (launches[0],
-                                                            launches[1] + 1)
+    assert (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1) == (
+        launches[0] + (r1 == 0), launches[1] + (r1 > 0))
+    assert all(g is o for g, o in zip(got, out))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape and (g == w).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "N,L,mask", [(128, 1, "5g"), (128, 8, "5g"), (128, 32, "5g"),
+                 (1024, 1, "5g"), (1024, 8, "5g"), (1024, 32, "5g")]
+    + [(1024, L, m) for m in NODE_MASKS for L in NODE_LISTS]
+    + [(N, L, "random") for N in (2, 4, 16) for L in NODE_LISTS])
+def test_scl_kernel_equals_plain_on_card(N, L, mask):
+    """On a card: the CUDA list-decode kernel's u_all, PM and tie counter
+    bit-equal to the plain version's on every frame, for the 5G masks and
+    every node kind at every width, and the launch counted once."""
+    _scl_card_case(N, L, 0, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "N,L,r1,mask", [(32, 4, 2, "all-info"), (128, 8, 4, "5g"),
+                    (1024, 1, 4, "5g"), (1024, 8, 4, "5g"),
+                    (1024, 16, 4, "5g"), (1024, 32, 2, "5g")]
+    + [(1024, L, 4, m) for m in NODE_MASKS for L in NODE_LISTS]
+    + [(N, L, 2, "random") for N in (2, 4, 16) for L in NODE_LISTS])
+def test_scl_r1_kernel_equals_plain_on_card(N, L, r1, mask):
+    """On a card: the list-decode kernel's rate-1 flavor bit-equal to the
+    plain flavor (u_all, PM, ties) on every frame, for the same masks,
+    counted once as a flavor launch and not as an exact one."""
+    _scl_card_case(N, L, r1, mask)
 
 
 def _wave_inputs(N, B, seed):
