@@ -7,8 +7,13 @@
 2. builds every CUDA source of the port (polardecoding_tpu_torch/csrc), one
    nvcc per source, all started together, and prints the build time and
    the compiler's register/shared-memory report;
-3. holds the BP decode kernel against its plain PyTorch version on the card:
-   u_hat bit-equal on every frame for N in {128, 1024}, B=512, LLRs from the
+3. prints the live-row BP kernels' launch shapes (shared memory per frame,
+   frames per SM, registers, spills) at N=1024 and 128, and checks 3 frames
+   per SM and no spills at N=1024; holds the BP decode kernel against its
+   plain PyTorch version on the card:
+   u_hat, written over a buffer filled with 90, bit-equal on every frame
+   for N in {128, 1024}, and for BP_1024's decoder on N=8 and 64 codes at
+   rate 1/2 (a frame one warp), B=512, LLRs from the
    port's channel at 1.0 and 2.0 dB, both min-sum flavors, early stop off
    and every 4 iterations; SPA equal on every frame the plain version
    decodes correctly (exp/log1p rounding may steer a non-converged frame);
@@ -96,7 +101,11 @@
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
    the card's rate for float32 adds, compares and selects, and the integer
    ones among them over 16.7e12, its INT32 rate; a probe's launches are
-   those of its driver's run), then {"ok": true, "device": {...}} last.
+   those of its driver's run).  A BP kernel's operations are counted on
+   the timed inputs, by a plain run on them (counted_chks, its line
+   chk_counts): a CHK whose table difference is +0 there counts only the
+   operations it needs without the table.  Then {"ok": true, "device":
+   {...}} last.
 
 Any failed phase raises and exits non-zero; without a CUDA device, or
 without the package beside this file, it exits non-zero before printing a
@@ -104,9 +113,10 @@ result.  The port imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import json
-import contextlib
 import io
 import os
 import runpy
@@ -121,6 +131,9 @@ from polardecoding_tpu_torch.utils.card import card_line, cuda_ms
 # shapes of each phase; the main path's are those of the JAX package's
 # bench.py fixed-iteration BP leg
 CMP_PRESETS = ("BP_128", "BP_1024")
+# BP_1024's decoder and channel on codes of N = 8 and 64 at rate 1/2 (the
+# 5G mask): a frame of the BP kernel is one warp there
+CMP_SMALL_NS = (8, 64)
 CMP_BATCH = 512
 CMP_SNRS = (1.0, 2.0)
 MAIN_PRESET = "BP_1024"
@@ -197,6 +210,16 @@ OPS_PER_S = 33.5e12
 # compares and 3 selects, the delta difference, the sign (two compares, an
 # equality, a select), |a|, |b|, min, the product and the final add
 CHK_OPS = 27
+# of the fast flavor (ops/chk.chk_fast): a+b, a-b, two abs, the two
+# select trees, the delta difference, |a+b| - |a-b|, its half, the final add
+CHK_FAST_OPS = 20
+# a BP CHK whose table difference is +0 (ops/chk.table_zero) needs fewer:
+# min-sum the sign, |a|, |b|, the min and the product (8), ||a| - |b||
+# (the smaller of |a+b| and |a-b|, rounded alike) and its compare with the
+# last threshold (3), and the add of +0, which makes a -0.0 +0.0 (1); the
+# fast flavor a+b, a-b, two abs, their min and its compare, the difference
+# and its half (8)
+CHK_BP_OPS = {"minsum_lut": (CHK_OPS, 12), "minsum_lut_fast": (CHK_FAST_OPS, 8)}
 # PHI (ops/chk.phi_penalties_both): |l| and its 3-level delta tree, shared
 # by both penalties; then per penalty a compare, a select, the add to the
 # delta and the add to the path metric
@@ -332,10 +355,33 @@ def phase_build(_build):
                 print(f"ptxas {name}: {line.strip()}")
 
 
-def llr_frames(name, batch, snr_db, device, seed=7):
+def phase_shapes():
+    """Each live-row BP kernel's launch shape at N=1024 and 128 in its main
+    path's flavor: shared memory per frame, frames per SM from the
+    occupancy query, registers and local memory per thread (spills, and
+    the stack frame of the MC kernel's out-of-line refill call in its
+    instance for n at run time, which N=128 launches).  At N=1024: 3 frames
+    per SM, at most 74,752 bytes a frame, no local memory."""
+    from polardecoding_tpu_torch.ops.bp_kernel import bp_decode_shape
+    from polardecoding_tpu_torch.ops.bp_wave_mc_kernel import bp_wave_mc_shape
+
+    for N in (1024, 128):
+        for name, shape in (
+                ("bp_decode", bp_decode_shape(N)),
+                ("bp_decode early stop", bp_decode_shape(N, early_stop_every=4)),
+                ("bp_wave_mc", bp_wave_mc_shape(N, "minsum_lut_fast"))):
+            emit({"kernel_shape": dict(kernel=name, N=N, **shape)})
+            if N == 1024:
+                check(shape["frames_per_sm"] == 3
+                      and shape["smem_bytes"] <= 74752
+                      and shape["local_bytes"] == 0,
+                      f"{name} at N=1024: {shape}")
+
+
+def llr_frames(name, batch, snr_db, device, seed=7, N=None):
     """Channel LLRs of frames 0..batch-1 of a preset at snr_db from the
     port's own pipeline (CRC included), with the code's frozen mask and the
-    true u."""
+    true u; with N, of the preset's code cut to length N at rate 1/2."""
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.ops.channel import (awgn_llr, fold_in,
                                                      frame_keys, prng_key,
@@ -346,6 +392,8 @@ def llr_frames(name, batch, snr_db, device, seed=7):
                                                           payload_from_index)
 
     code = preset(name).code
+    if N is not None:
+        code = dataclasses.replace(code, N=N, K=N // 2)
     tables = code_tables(code, device)
     fidx = torch.arange(batch, device=device)
     w = _crc_encode(code, payload_from_index(fidx, tables.pn, code.K))
@@ -366,23 +414,27 @@ def phase_compare():
     from polardecoding_tpu_torch.parallel.harness import make_frame_step
 
     worst = 0
-    for name in CMP_PRESETS:
+    codes = ([(name, None) for name in CMP_PRESETS]
+             + [(MAIN_PRESET, N) for N in CMP_SMALL_NS])
+    for name, N in codes:
         for snr in CMP_SNRS:
-            llr, frozen, u = llr_frames(name, CMP_BATCH, snr, DEVICE)
+            llr, frozen, u = llr_frames(name, CMP_BATCH, snr, DEVICE, N=N)
             check(bool(torch.isfinite(llr).all()), f"{name}: non-finite LLRs")
             cases = [(f, es) for f in ("minsum_lut", "minsum_lut_fast")
                      for es in (0, 4)] + [("spa", 0)]
             for flavor, es in cases:
+                out = torch.full(llr.shape, 90, dtype=torch.int8, device=DEVICE)
                 got = bp_decode_cuda(llr, frozen, iters=100, flavor=flavor,
-                                     early_stop_every=es)
+                                     early_stop_every=es, out=out)
                 want = bp_decode(llr, frozen, iters=100, flavor=flavor,
                                  early_stop_every=es)
                 torch.cuda.synchronize()
-                check(got.dtype == torch.int8 and got.shape == want.shape,
+                check(got is out and got.shape == want.shape,
                       f"kernel output {got.dtype} {tuple(got.shape)}")
                 equal = (got == want).all(dim=1)
                 correct = (want == u).all(dim=1)
-                rec = {"compare": {"preset": name, "snr_db": snr,
+                rec = {"compare": {"preset": name, "N": llr.shape[1],
+                                   "snr_db": snr,
                                    "flavor": flavor, "early_stop_every": es,
                                    "frames": CMP_BATCH,
                                    "frames_equal": int(equal.sum()),
@@ -1038,16 +1090,18 @@ def phase_mc_channel_main():
     return count
 
 
-def hold_and_time(card, name, B, run, axes, **info):
+def hold_and_time(card, name, B, run, axes, flavor=None, **info):
     """run(engine, fresh) computes one kernel's function at its bench shape,
     with the kernel (engine="auto") or the plain version ("plain"), on
     copies of the inputs the kernel updates in place when fresh.  Holds the
     two bit-equal on every frame (axes: each output's frame axis), times
     them in turns (plain, kernel, kernel, plain; the plain version once per
     turn) and emits a wave_timing line; returns (kernel ms, plain ms,
-    largest |kernel - plain|)."""
+    largest |kernel - plain|, the plain BP's CHKs of `flavor` counted by
+    counted_chks, or None without)."""
     got = run("auto", True)
-    want = run("plain", False)
+    with (counted_chks(flavor) if flavor else contextlib.nullcontext()) as chks:
+        want = run("plain", False)
     torch.cuda.synchronize()
     equal, err = frames_equal(list(zip(got, want, axes)), B)
     del got, want
@@ -1058,7 +1112,7 @@ def hold_and_time(card, name, B, run, axes, **info):
         acc.append(cuda_ms(lambda: run(engine, False), reps)[0])
     emit({"wave_timing": dict(card=card, kernel=name, batch=B, kernel_ms=k,
                               plain_ms=pl, frames_equal=equal, **info)})
-    return statistics.mean(k), statistics.mean(pl), err
+    return statistics.mean(k), statistics.mean(pl), err, chks
 
 
 def phase_wave_timing(card):
@@ -1067,7 +1121,7 @@ def phase_wave_timing(card):
     through hold_and_time; the fused ES step split into kernel and channel;
     retired frames/s of the fused and MC wave paths over WAVE_CHUNK steps
     after a chunk of warmup.  Returns {kernel: (ms, plain ms, largest
-    |kernel - plain|)}."""
+    |kernel - plain|, the plain BP's CHK counts or None)}."""
     from polardecoding_tpu_torch.models.bp import (bp_wave, bp_wave_fused,
                                                    bp_wave_mc, mc_delta,
                                                    mc_tables)
@@ -1102,7 +1156,8 @@ def phase_wave_timing(card):
         card, "bp_wave_fused", B,
         lambda e, f: bp_wave_fused(own(state, f), llr, retire, WAVE_ITERS,
                                    engine=e),
-        (1, 0, 0), preset=WAVE_PRESET, wave_iters=WAVE_ITERS)
+        (1, 0, 0), flavor=p.decoder.bp_flavor, preset=WAVE_PRESET,
+        wave_iters=WAVE_ITERS)
     step_ms, _ = cuda_ms(lambda: run(read=False), STEP_REPS)
     kernel_ms = out["bp_wave_fused"][0]
     emit({"wave_step_split": {"card": card, "preset": WAVE_PRESET, "batch": B,
@@ -1114,7 +1169,7 @@ def phase_wave_timing(card):
     out["bp_wave"] = hold_and_time(
         card, "bp_wave", B,
         lambda e, f: (bp_wave(own(state, f), WAVE_ITERS, engine=e),), (1,),
-        preset=WAVE_PRESET, wave_iters=WAVE_ITERS)
+        flavor=p.decoder.bp_flavor, preset=WAVE_PRESET, wave_iters=WAVE_ITERS)
     del state, llr, run
 
     fps = {}
@@ -1141,8 +1196,8 @@ def phase_wave_timing(card):
         card, "bp_wave_mc", B,
         lambda e, f: bp_wave_mc(own(state, f), own(meta, f), *tabs, sigma,
                                 (k0, k1, k0 ^ k1, stepc), engine=e, **kw),
-        (1, 1, 0), preset=MC_PRESET, wave_iters=MC_ITERS, cadence=MC_CADENCE,
-        spares=MC_SPARES)
+        (1, 1, 0), flavor=p.decoder.bp_flavor, preset=MC_PRESET,
+        wave_iters=MC_ITERS, cadence=MC_CADENCE, spares=MC_SPARES)
     del state, meta, r
 
     _, xtab = _mc_mode_tables(p.code, DEVICE)
@@ -1398,16 +1453,57 @@ def bound(nbytes, ops, int_ops=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bp_work(B, N, iters):
+@contextlib.contextmanager
+def counted_chks(flavor):
+    """Counts, within the block, the CHKs of the plain BP of `flavor`
+    (models/bp.CHK_FNS) that the function needs: every call but the
+    L-sweep's chk(R[n-1], L[n]) at stage n-1, which repeats the R-sweep's
+    on the same operands; and of those, the ones whose table difference is
+    +0 (ops/chk.table_zero).  Yields {"flavor", "chks", "zero"}, the counts
+    filled on exit."""
+    from polardecoding_tpu_torch.models import bp
+    from polardecoding_tpu_torch.ops.chk import table_zero
+
+    fn = bp.CHK_FNS[flavor]
+    counts = {"flavor": flavor, "chks": 0, "zero": 0}
+    zero, last = [], [0]
+
+    def counted(a, b):
+        if a.shape[-2] == 1:  # [.., N / 2^(i+1), 2^i]: stage n-1
+            last[0] += 1
+            if last[0] % 4 == 0:  # R: chk(ru, ld + rd), chk(ru, lu); L: ..
+                return fn(a, b)
+        z = table_zero(a, b)
+        counts["chks"] += z.numel()
+        zero.append(z.sum())
+        return fn(a, b)
+
+    bp.CHK_FNS[flavor] = counted
+    try:
+        yield counts
+    finally:
+        bp.CHK_FNS[flavor] = fn
+    counts["zero"] = int(sum(zero)) if zero else 0
+
+
+def bp_sweep_ops(chks):
+    """Operations of the BP sweep's CHKs as counted_chks counted them, each
+    with the add beside it (the sweep equations of models/bp.bp_iteration;
+    at stage n-1 the R- and L-sweep share ld + rd)."""
+    full, zero = CHK_BP_OPS[chks["flavor"]]
+    return ((chks["chks"] - chks["zero"]) * full + chks["zero"] * zero
+            + chks["chks"])
+
+
+def bp_work(B, N, chks):
     """Bytes and operations of one fixed-iteration BP decode: LLRs and
-    frozen row in, decisions out; per butterfly and iteration 4 CHKs and
-    4 adds (the R- and L-sweep equations of models/bp.bp_iteration)."""
-    n = N.bit_length() - 1
+    frozen row in, decisions out; the sweep's CHKs and adds that the run's
+    inputs need (bp_sweep_ops)."""
     nbytes = B * N * 4 + N * 4 + B * N
-    return nbytes, B * iters * n * (N // 2) * (4 * CHK_OPS + 4)
+    return nbytes, bp_sweep_ops(chks)
 
 
-def wave_work(B, N, iters, fused):
+def wave_work(B, N, fused, chks):
     """Bytes and operations of one wave: the state [2(n+1), B, N] read and
     written once, and for the fused wave the LLRs and retire mask in and
     u_hat and done out; the iterations' CHKs and adds as bp_work counts
@@ -1416,7 +1512,7 @@ def wave_work(B, N, iters, fused):
     nbytes = 2 * 2 * (n + 1) * B * N * 4
     if fused:
         nbytes += B * N * 4 + B + B * N + B
-    return nbytes, B * iters * n * (N // 2) * (4 * CHK_OPS + 4)
+    return nbytes, bp_sweep_ops(chks)
 
 
 def noise_work(elements):
@@ -1426,15 +1522,16 @@ def noise_work(elements):
     return int_ops + elements * LLR_OPS, int_ops
 
 
-def mc_wave_work(B, N, iters, refills):
+def mc_wave_work(B, N, refills, chks):
     """Bytes, operations and integer operations of one MC wave: state and
     meta [4, B, N] read and written once, the two tables read, stats
-    written; the iterations' CHKs and adds, and a row of noise and LLR for
-    each of this wave's `refills` (head merges and in-wave retirements)."""
+    written; the iterations' CHKs and adds as bp_work counts them, and a
+    row of noise and LLR for each of this wave's `refills` (head merges and
+    in-wave retirements)."""
     n = N.bit_length() - 1
     nbytes = 2 * (2 * (n + 1) + 4) * B * N * 4 + 2 * 128 * N * 4 + B * 3 * 4
     ops, int_ops = noise_work(refills * N)
-    return nbytes, B * iters * n * (N // 2) * (4 * CHK_OPS + 4) + ops, int_ops
+    return nbytes, bp_sweep_ops(chks) + ops, int_ops
 
 
 def mc_channel_work(B, N):
@@ -1505,6 +1602,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     phase_build(_build)
+    phase_shapes()
     bp_worst = phase_compare()
     scl_worst = phase_scl_compare()
     r1_worst = phase_scl_r1_compare()
@@ -1560,8 +1658,15 @@ def main() -> int:
         also={"exact_kernel_ms": lambda llr, fr: scl_decode_cuda(llr, fr, L)},
         L=L, r1=r1, wloop=WLOOP)
     times["scl_decode_r1"] = (r1_ms, r1_plain_ms, max(r1_worst, worst))
-    for name, (ms, plain_ms, worst) in phase_wave_timing(card).items():
+    # the CHKs that the timed decode's inputs need, from a plain run on them
+    llr, fr, _ = llr_frames(MAIN_PRESET, MAIN_BATCH, MAIN_SNR, DEVICE)
+    with counted_chks(preset(MAIN_PRESET).decoder.bp_flavor) as c:
+        bp_decode(llr, fr, iters=100)
+    chks = {"bp_decode": c}
+    del llr, fr
+    for name, (ms, plain_ms, worst, c) in phase_wave_timing(card).items():
         times[name] = (ms, plain_ms, max(wave_worst[name], worst))
+        chks[name] = c
     phase_profile(card, MAIN_PRESET, MAIN_BATCH,
                   frame_step_runner(MAIN_PRESET, MAIN_BATCH))
     phase_profile(card, SCL_PRESET, SCL_BATCH,
@@ -1593,13 +1698,15 @@ def main() -> int:
     # per retired frame)
     refills = int(mc(read=False)[2])
     bounds = {
-        "bp_decode": bp_work(MAIN_BATCH, N, 100),
+        "bp_decode": bp_work(MAIN_BATCH, N, chks["bp_decode"]),
         "scl_decode": scl_work(SCL_BATCH, N, p.decoder.list_size, frozen),
         "scl_decode_r1": scl_work(SCL_BATCH, N, L, frozen, r1=r1),
-        "bp_wave_fused": wave_work(WAVE_BATCH, N, WAVE_ITERS, True),
-        "bp_wave": wave_work(WAVE_BATCH, N, WAVE_ITERS, False),
-        "bp_wave_mc": mc_wave_work(WAVE_BATCH, N, MC_ITERS, refills),
+        "bp_wave_fused": wave_work(WAVE_BATCH, N, True, chks["bp_wave_fused"]),
+        "bp_wave": wave_work(WAVE_BATCH, N, False, chks["bp_wave"]),
+        "bp_wave_mc": mc_wave_work(WAVE_BATCH, N, refills, chks["bp_wave_mc"]),
         "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N), **probe_bounds}
+    emit({"chk_counts": {k: dict(c, zero_share=c["zero"] / c["chks"])
+                         for k, c in chks.items() if c}})
     lines = []
     for name, (mod, _, key) in kernels().items():
         ms, plain_ms, worst = times[name]

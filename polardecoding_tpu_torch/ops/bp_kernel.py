@@ -22,15 +22,42 @@ REPLACES = "polardecoding_tpu/ops/pallas/bp_kernel.py:771"
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
 
 
+def launch_shape(lib_name: str, entry: str, *args) -> dict:
+    """The launch shape a kernel's `<entry>(*args, ...)` reports on the
+    current card: threads per block (a block is one frame), shared memory
+    per frame, frames resident per SM, registers per thread and local
+    memory per thread (non-zero when registers spill)."""
+    fn = getattr(_build.load(lib_name), entry)
+    threads, per_sm, regs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem, local = ctypes.c_size_t(), ctypes.c_size_t()
+    rc = fn(*(ctypes.c_int(a) for a in args), ctypes.byref(threads),
+            ctypes.byref(smem), ctypes.byref(per_sm), ctypes.byref(regs),
+            ctypes.byref(local))
+    if rc != 0:
+        raise _build.LaunchError(f"{entry} failed ({rc})")
+    return {"threads": threads.value, "smem_bytes": smem.value,
+            "frames_per_sm": per_sm.value, "registers": regs.value,
+            "local_bytes": local.value}
+
+
+def bp_decode_shape(N: int, flavor: str = "minsum_lut",
+                    early_stop_every: int = 0) -> dict:
+    """The kernel's launch shape at (N, flavor, early_stop_every) on the
+    current card (launch_shape)."""
+    return launch_shape("bp_decode", "bp_decode_shape", N, FLAVORS[flavor],
+                        early_stop_every)
+
+
 def bp_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor, iters: int = 100,
-                   flavor: str = "minsum_lut",
-                   early_stop_every: int = 0) -> torch.Tensor:
+                   flavor: str = "minsum_lut", early_stop_every: int = 0,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Decode [B, N] float32 channel LLRs on the card with the CUDA kernel.
 
     frozen: [N] bool on the same device.  Returns u_hat [B, N] int8, as
-    models/bp.bp_decode.  Launches on the current stream without
-    synchronising; raises on any input the kernel does not take and when the
-    launch is refused."""
+    models/bp.bp_decode, written into `out` when given (a contiguous [B, N]
+    int8 tensor on the LLRs' device).  Launches on the current stream
+    without synchronising; raises on any input the kernel does not take and
+    when the launch is refused."""
     global LAUNCHES
     if ch_llr.device.type != "cuda":
         raise ValueError(f"bp_decode_cuda needs a CUDA tensor, got {ch_llr.device}")
@@ -49,7 +76,12 @@ def bp_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor, iters: int = 100,
         raise ValueError(f"unknown BP flavor {flavor!r}")
     if iters < 0 or early_stop_every < 0:
         raise ValueError("iters and early_stop_every must be >= 0")
-    out = torch.empty((B, N), dtype=torch.int8, device=ch_llr.device)
+    if out is None:
+        out = torch.empty((B, N), dtype=torch.int8, device=ch_llr.device)
+    elif (out.dtype != torch.int8 or tuple(out.shape) != (B, N)
+          or out.device != ch_llr.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{B}, {N}] int8 tensor "
+                         "on the LLRs' device")
     if B == 0:
         return out
     fr = torch.where(frozen, 999.0, 0.0).to(torch.float32).contiguous()

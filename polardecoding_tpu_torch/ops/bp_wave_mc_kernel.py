@@ -13,7 +13,7 @@ import ctypes
 import torch
 
 from polardecoding_tpu_torch.ops import _build
-from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS
+from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, launch_shape
 from polardecoding_tpu_torch.ops.bp_wave_kernel import check_state
 from polardecoding_tpu_torch.ops.channel_kernel import words32
 from polardecoding_tpu_torch.ops.noise import MASK32
@@ -27,13 +27,19 @@ _ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float] + [ctypes.c_uint32] * 3
              + [ctypes.c_int] * 9)
 
 
+def bp_wave_mc_shape(N: int, flavor: str = "minsum_lut") -> dict:
+    """The kernel's launch shape at (N, flavor) on the current card
+    (ops/bp_kernel.launch_shape)."""
+    return launch_shape("bp_wave_mc", "bp_wave_mc_shape", N, FLAVORS[flavor])
+
+
 def bp_wave_mc_cuda(state, meta, u_table, x_table, sigma, seeds, bits=None,
                     iters: int = 8, flavor: str = "minsum_lut",
                     tile: int = 0, interpret: bool = False, rolls: int = 3,
                     iter_max: int = 100, delta: int = 0, drain: bool = False,
-                    spares: int = 2, cadence: int = 1):
+                    spares: int = 2, cadence: int = 1, out=None):
     """One MC wave on the card -> (state, meta, both updated in place;
-    stats [B, 3] float32).
+    stats [B, 3] float32, written into `out` when given).
 
     state [2(n+1), B, N] and meta [4, B, N] float32; u_table and x_table
     [128, N] float32; sigma a float; seeds 4 words (k0, k1, k0 ^ k1, step);
@@ -63,7 +69,14 @@ def bp_wave_mc_cuda(state, meta, u_table, x_table, sigma, seeds, bits=None,
         raise ValueError(f"unknown BP flavor {flavor!r}")
     if iters < 0 or spares < 1 or cadence < 1 or delta < 0:
         raise ValueError("need iters >= 0, spares >= 1, cadence >= 1, delta >= 0")
-    stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    if out is None:
+        stats = torch.empty((B, 3), dtype=torch.float32, device=dev)
+    elif (out.dtype != torch.float32 or tuple(out.shape) != (B, 3)
+          or out.device != dev or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous [{B}, 3] float32 tensor "
+                         "on the state's device")
+    else:
+        stats = out
     if B == 0:
         return state, meta, stats
     utab, xtab = u_table.contiguous(), x_table.contiguous()

@@ -51,6 +51,15 @@ def lut_correction(x):
     return torch.broadcast_to(_lut_tree(x, 0, len(LUT_VALUES), T, V), x.shape)
 
 
+def table_zero(a, b):
+    """Where the CHK's table difference delta(|a+b|) - delta(|a-b|) is +0
+    without the table: both |a+b| and |a-b| at or above the last threshold
+    (NaN not).  The CUDA BP sweep skips the table there
+    (csrc/bp_common.cuh, lut_fma_diff)."""
+    last = _constants(a.dtype, a.device)[0][-1]
+    return torch.minimum(torch.abs(a + b), torch.abs(a - b)) >= last
+
+
 def _sign_min(a, b):
     _, _, one, minus_one = _constants(a.dtype, a.device)
     s = torch.where((a >= 0) == (b >= 0), one, minus_one)

@@ -65,7 +65,8 @@ for name in sys.argv[1:]:
 print(sorted(m for m in sys.modules if blocked(m)))
 """
 PROBE_SCRIPTS = ("torch_probe_floor", "torch_probe_floor2", "torch_probe_floor3",
-                 "torch_microbench_rolls", "torch_scl_parts")
+                 "torch_microbench_rolls", "torch_scl_parts", "torch_bp_parts",
+                 "torch_bp_saturation")
 
 
 def test_probe_scripts_import_without_jax():
@@ -118,13 +119,22 @@ def test_build_flags():
     assert "-fmad=false" in flags and "fast_math" not in flags
 
 
+CARD_NS = (8, 16, 64, 128, 256, 1024)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N,flavor,early_stop_every",
-                         [(128, "minsum_lut", 0), (128, "minsum_lut_fast", 4),
-                          (1024, "minsum_lut", 4), (1024, "minsum_lut_fast", 0)])
+                         [(N, f, es) for N in CARD_NS
+                          for f, es in (("minsum_lut", 0), ("minsum_lut_fast", 4),
+                                        ("minsum_lut", 4), ("minsum_lut_fast", 0))]
+                         + [(N, "spa", es) for N in (64, 1024) for es in (0, 4)])
 def test_kernel_equals_plain_on_card(N, flavor, early_stop_every):
-    """On a card: the CUDA kernel's u_hat bit-equal to the plain version's on
-    every frame, and the launch counted once."""
+    """On a card: the CUDA kernel's u_hat, written over a buffer filled with
+    90 (a store left out shows), bit-equal to the plain version's on every
+    frame (SPA: on every frame the plain version decodes correctly), and
+    the launch counted once; bp_decode_auto routes the CUDA tensor to the
+    kernel (one more launch) with the same result.  At N <= 64 a frame is
+    one warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from polardecoding_tpu_torch.models.bp import bp_decode, bp_decode_auto
@@ -137,14 +147,43 @@ def test_kernel_equals_plain_on_card(N, flavor, early_stop_every):
     y = 1.0 + sigma * rng.normal(size=(64, N))
     llr = torch.as_tensor((2.0 * y / sigma ** 2).astype(np.float32), device="cuda")
     frozen = torch.as_tensor(frozen_mask(N, N // 2), device="cuda")
+    out = torch.full((64, N), 90, dtype=torch.int8, device="cuda")
     launches = bp_kernel.LAUNCHES
-    got = bp_decode_auto(llr, frozen, iters=100, flavor=flavor,
-                         early_stop_every=early_stop_every)
+    got = bp_kernel.bp_decode_cuda(llr, frozen, iters=100, flavor=flavor,
+                                   early_stop_every=early_stop_every, out=out)
     want = bp_decode(llr, frozen, iters=100, flavor=flavor,
                      early_stop_every=early_stop_every)
     torch.cuda.synchronize()
     assert bp_kernel.LAUNCHES == launches + 1
-    assert got.dtype == torch.int8 and (got == want).all()
+    assert got is out and got.dtype == torch.int8
+    routed = bp_decode_auto(llr, frozen, iters=100, flavor=flavor,
+                            early_stop_every=early_stop_every)
+    torch.cuda.synchronize()
+    assert bp_kernel.LAUNCHES == launches + 2
+    for res in (got, routed):
+        equal = (res == want).all(dim=1)
+        if flavor == "spa":
+            equal = equal[(want == 0).all(dim=1)]
+        assert equal.all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bp_decode", "bp_wave_mc"])
+def test_live_row_kernels_hold_three_frames_per_sm_on_card(kernel):
+    """On a card: at N=1024 each live-row kernel takes at most 74,752 bytes
+    of shared memory a frame, the occupancy query puts 3 frames on an SM,
+    and no register spills to local memory, in every flavor."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, bp_decode_shape
+    from polardecoding_tpu_torch.ops.bp_wave_mc_kernel import bp_wave_mc_shape
+
+    for flavor in FLAVORS:
+        shape = (bp_decode_shape(1024, flavor, early_stop_every=4)
+                 if kernel == "bp_decode" else bp_wave_mc_shape(1024, flavor))
+        assert shape["smem_bytes"] <= 74752, shape
+        assert shape["frames_per_sm"] == 3, shape
+        assert shape["local_bytes"] == 0, shape
 
 
 def _node_mask(name, N):
@@ -280,12 +319,17 @@ def test_wave_kernels_equal_plain_on_card(N, check_every):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,cadence,noise", [(128, 1, "kernel"),
-                                             (128, 2, "bits"),
-                                             (1024, 2, "kernel")])
+@pytest.mark.parametrize("N,cadence,noise",
+                         [(N, c, nz) for N in CARD_NS
+                          for c, nz in ((1, "kernel"), (2, "bits"))]
+                         + [(1024, 2, "kernel")])
 def test_wave_mc_kernel_equals_plain_on_card(N, cadence, noise):
-    """On a card: four MC waves and a drain, state, meta and stats bit-equal
-    to the plain version's, with counter noise or given words."""
+    """On a card: four MC waves (the second of no iterations) and a drain,
+    state, meta and stats bit-equal to the plain version's, with counter
+    noise or given words, the stats written over a buffer filled with 90;
+    and a third chain through bp_wave_mc (engine "auto"), which routes the
+    CUDA tensors to the kernel (one more launch a wave), equal too.  At
+    N <= 64 a slot is one warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from polardecoding_tpu_torch.models.bp import (bp_wave_mc, mc_delta,
@@ -301,19 +345,26 @@ def test_wave_mc_kernel_equals_plain_on_card(N, cadence, noise):
                          torch.as_tensor(frozen_mask(N, K), device="cuda"))
     m1 = mc_meta_init(B, N, K, "cuda")
     s2, m2 = s1.clone(), m1.clone()
+    s3, m3 = s1.clone(), m1.clone()
     launches = bp_wave_mc_kernel.LAUNCHES
     for step in range(5):
         bits = None if noise == "kernel" else torch.as_tensor(
             rng.integers(0, 2 ** 32, (2, B, N)), device="cuda")
-        kw = dict(iters=8, iter_max=24, delta=mc_delta(B, K), drain=step == 4,
-                  cadence=cadence, gen_bits=bits is None)
+        kw = dict(iters=0 if step == 1 else 8, iter_max=24,
+                  delta=mc_delta(B, K), drain=step == 4, cadence=cadence)
         seeds = (0x13198A2E, 0x03707344, 0x13198A2E ^ 0x03707344, step)
-        s1, m1, x1 = bp_wave_mc(s1, m1, *tabs, 0.8, seeds, bits, **kw)
+        x1 = torch.full((B, 3), 90.0, device="cuda")
+        got = bp_wave_mc_kernel.bp_wave_mc_cuda(s1, m1, *tabs, 0.8, seeds, bits,
+                                                out=x1, **kw)
         s2, m2, x2 = bp_wave_mc(s2, m2, *tabs, 0.8, seeds, bits, engine="plain",
-                                **kw)
+                                gen_bits=bits is None, **kw)
+        s3, m3, x3 = bp_wave_mc(s3, m3, *tabs, 0.8, seeds, bits,
+                                gen_bits=bits is None, **kw)
         torch.cuda.synchronize()
+        assert got[0] is s1 and got[1] is m1 and got[2] is x1
         assert _same_bits(s1, s2) and _same_bits(m1, m2) and _same_bits(x1, x2)
-    assert bp_wave_mc_kernel.LAUNCHES == launches + 5
+        assert _same_bits(s3, s2) and _same_bits(m3, m2) and _same_bits(x3, x2)
+    assert bp_wave_mc_kernel.LAUNCHES == launches + 10
 
 
 @pytest.mark.cuda
