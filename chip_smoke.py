@@ -8,8 +8,9 @@
    nvcc per source, all started together, and prints the build time and
    the compiler's register/shared-memory report;
 3. prints the live-row BP kernels' launch shapes (shared memory per frame,
-   frames per SM, registers, spills) at N=1024 and 128, and checks 3 frames
-   per SM and no spills at N=1024; holds the BP decode kernel against its
+   frames per SM, registers, spills) at N=1024 and 128, the wave kernels in
+   every flavor, and checks 3 frames per SM, at most 74,752 bytes a frame
+   and no spills at N=1024; holds the BP decode kernel against its
    plain PyTorch version on the card:
    u_hat, written over a buffer filled with 90, bit-equal on every frame
    for N in {128, 1024}, and for BP_1024's decoder on N=8 and 64 codes at
@@ -49,13 +50,19 @@
    SCL_1024_L16_FASTR1 at batch 16384 to 50 error blocks, BLER in
    [0.002, 0.007] (BASELINE.md: 4.088e-3) and [0.0045, 0.0125] (8.032e-3);
 7. holds the four wave-engine kernels against their plain versions on the
-   card, bit for bit on every frame: the fused wave kernel (check_every 0
-   and 4) and the unfused one over four waves with retirements, N in
-   {128, 1024}, B=512 (state, u_hat, done); the MC wave kernel over five
-   waves, the last in drain, at K=32 with cadence 1 and 2, counter noise
-   and given words (state, meta, stats); the MC channel at B=8192 in both
-   noise modes; and the fused and unfused engines' per-step counters at
-   B=16384, equal with kernels and plain versions and to each other;
+   card, bit for bit on every frame, at B=512 on the N=128 and 1024 presets'
+   codes and BP_1024's cut to N=8 and 64: the fused wave kernel (check_every
+   0 and 4) and the unfused one over four waves with retirements (state,
+   u_hat, done); both, in both min-sum flavors, on one wave from a state
+   three iterations in with every odd slot retired, at 0, 1 and 8
+   iterations, the fused one with check_every 0, 1, 4 and 8; the MC wave
+   kernel over five waves of 32, 0, 1, 32 and 32 iterations, the last in
+   drain, with cadence 1 and 2, counter noise and given words (state, meta,
+   stats); at one iteration or more the planes that an iteration
+   overwrites (L[0], R[1..n]) hold NaN before the call.  Then the MC
+   channel at B=8192 in both noise modes; and the fused and unfused
+   engines' per-step counters at B=16384, equal with kernels and plain
+   versions and to each other;
 8. drives the wave paths, each with the launch counts at 0: run_point on
    BP_1024_ES at 2.0 dB (the fused engine, K=8), run_point_waves on
    BP_1024_FASTCHK with engine="mc", K=32, cadence 2 (bench.py's BP leg)
@@ -194,7 +201,12 @@ WAVE_ERROR_BLOCKS = 200
 WAVE_CMP_BATCH = 512
 WAVE_CMP_WAVES = 4
 WAVE_STEP_CMP_STEPS = 3
-MC_CMP_WAVES = 5
+# the MC comparison's waves: their iterations (one of none, one of one), the
+# last in drain
+MC_CMP_ITERS = (MC_ITERS, 0, 1, MC_ITERS, MC_ITERS)
+# the wave kernels' one-wave cases: iterations and fused check cadences
+WAVE_CMP_ITERS = (0, 1, WAVE_ITERS)
+WAVE_CMP_CHECKS = (0, 1, 4, WAVE_ITERS)
 MC_CHANNEL_BATCH = 8192
 WAVE_KERNEL_REPS = 10
 WAVE_CHUNK = 8  # run_point_waves' steps per counter read-back
@@ -356,25 +368,33 @@ def phase_build(_build):
 
 
 def phase_shapes():
-    """Each live-row BP kernel's launch shape at N=1024 and 128 in its main
-    path's flavor: shared memory per frame, frames per SM from the
-    occupancy query, registers and local memory per thread (spills, and
-    the stack frame of the MC kernel's out-of-line refill call in its
-    instance for n at run time, which N=128 launches).  At N=1024: 3 frames
-    per SM, at most 74,752 bytes a frame, no local memory."""
-    from polardecoding_tpu_torch.ops.bp_kernel import bp_decode_shape
+    """Each live-row BP kernel's launch shape at N=1024 and 128: the decode
+    and MC kernels in their main paths' flavors, the wave kernels in every
+    flavor (the fused one with check_every 0 and 4, two instances): shared
+    memory per frame, frames per SM from the occupancy query, registers and
+    local memory per thread (spills and stack frames).  No local memory at
+    either N (N=128 launches the instances for n at run time); at N=1024 3
+    frames per SM and at most 74,752 bytes a frame."""
+    from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, bp_decode_shape
+    from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_shape
     from polardecoding_tpu_torch.ops.bp_wave_mc_kernel import bp_wave_mc_shape
 
     for N in (1024, 128):
-        for name, shape in (
-                ("bp_decode", bp_decode_shape(N)),
-                ("bp_decode early stop", bp_decode_shape(N, early_stop_every=4)),
-                ("bp_wave_mc", bp_wave_mc_shape(N, "minsum_lut_fast"))):
+        shapes = [("bp_decode", bp_decode_shape(N)),
+                  ("bp_decode early stop", bp_decode_shape(N, early_stop_every=4)),
+                  ("bp_wave_mc", bp_wave_mc_shape(N, "minsum_lut_fast"))]
+        for flavor in FLAVORS:
+            shapes.append((f"bp_wave {flavor}", bp_wave_shape(N, flavor)))
+            for ce in (0, 4):
+                shapes.append((f"bp_wave_fused {flavor} check_every={ce}",
+                               bp_wave_shape(N, flavor, fused=True,
+                                             check_every=ce)))
+        for name, shape in shapes:
             emit({"kernel_shape": dict(kernel=name, N=N, **shape)})
+            check(shape["local_bytes"] == 0, f"{name} at N={N}: {shape}")
             if N == 1024:
                 check(shape["frames_per_sm"] == 3
-                      and shape["smem_bytes"] <= 74752
-                      and shape["local_bytes"] == 0,
+                      and shape["smem_bytes"] <= 74752,
                       f"{name} at N=1024: {shape}")
 
 
@@ -952,17 +972,25 @@ def phase_wave_compare():
         check(equal == frames and err == 0, f"kernel != plain: {rec}")
         worst[kernel] = max(worst[kernel], err)
 
-    for name in CMP_PRESETS:
-        p = preset(name)
-        N, K = p.code.N, p.code.K
-        tables = code_tables(p.code, DEVICE)
+    codes = ([(name, None) for name in CMP_PRESETS]
+             + [(MAIN_PRESET, N) for N in CMP_SMALL_NS])
+    for name, cut in codes:
+        code = preset(name).code
+        if cut is not None:
+            code = dataclasses.replace(code, N=cut, K=cut // 2)
+        N, K = code.N, code.K
+        tables = code_tables(code, DEVICE)
+        # the planes an iteration writes before it reads them: L[0], R[1..n]
+        n = N.bit_length() - 1
+        dead = [0] + list(range(n + 2, 2 * n + 2))
         for kernel, ce in (("bp_wave_fused", 0), ("bp_wave_fused", 4),
                            ("bp_wave", 0)):
             state = wave_init_state(torch.zeros(B, N, device=DEVICE),
                                     tables.frozen)
             retire = torch.ones(B, dtype=torch.bool, device=DEVICE)
             for w in range(WAVE_CMP_WAVES):
-                llr, _, _ = llr_frames(name, B, MAIN_SNR, DEVICE, seed=100 + w)
+                llr, _, _ = llr_frames(name, B, MAIN_SNR, DEVICE, seed=100 + w,
+                                       N=cut)
                 if kernel == "bp_wave":
                     got = bp_wave(state.clone(), WAVE_ITERS)
                     state = bp_wave(state, WAVE_ITERS, engine="plain")
@@ -978,37 +1006,74 @@ def phase_wave_compare():
                              (got[2], want[2], 0)]
                     state, retire = want[0], want[2]
                 torch.cuda.synchronize()
-                record(kernel, {"preset": name, "check_every": ce, "wave": w,
-                                "retired": int(retire.sum())},
+                record(kernel, {"preset": name, "N": N, "check_every": ce,
+                                "wave": w, "retired": int(retire.sum())},
                        *frames_equal(pairs, B), B)
 
+        # one wave from a state three iterations in, every odd slot retired,
+        # at 0, 1 and K iterations; at >= 1 the planes that an iteration
+        # overwrites hold NaN, which the kernels must not read
+        llr0, _, _ = llr_frames(name, B, MAIN_SNR, DEVICE, seed=90, N=cut)
+        llr, _, _ = llr_frames(name, B, MAIN_SNR, DEVICE, seed=91, N=cut)
+        retire = torch.arange(B, device=DEVICE) % 2 == 1
+        for flavor in ("minsum_lut", "minsum_lut_fast"):
+            base = bp_wave(wave_init_state(llr0, tables.frozen), 3, flavor,
+                           engine="plain")
+            for iters in WAVE_CMP_ITERS:
+                for kernel, ce in ([("bp_wave", 0)] + [("bp_wave_fused", c)
+                                                      for c in WAVE_CMP_CHECKS]):
+                    state = base.clone()
+                    if iters:
+                        state[dead] = float("nan")
+                    if kernel == "bp_wave":
+                        got = (bp_wave(state.clone(), iters, flavor),)
+                        want = (bp_wave(state, iters, flavor, engine="plain"),)
+                    else:
+                        got = bp_wave_fused(state.clone(), llr, retire, iters,
+                                            flavor, check_every=ce)
+                        want = bp_wave_fused(state, llr, retire, iters, flavor,
+                                             check_every=ce, engine="plain")
+                    torch.cuda.synchronize()
+                    rec = {"preset": name, "N": N, "flavor": flavor,
+                           "iters": iters, "check_every": ce,
+                           "sentinel": iters > 0}
+                    if kernel == "bp_wave_fused":
+                        rec.update(retired=int(retire.sum()),
+                                   done=int(want[2].sum()))
+                    record(kernel, rec,
+                           *frames_equal(list(zip(got, want, (1, 0, 0))), B), B)
+
         utab, xtab = mc_tables(tables.info_set.cpu().numpy(), K, N, DEVICE)
-        kw = dict(iters=MC_ITERS, flavor="minsum_lut_fast", delta=mc_delta(B, K),
+        kw = dict(flavor="minsum_lut_fast", delta=mc_delta(B, K),
                   spares=MC_SPARES)
         for noise in ("kernel", "words"):
             for cadence in (1, 2):
                 state = wave_init_state(torch.zeros(B, N, device=DEVICE),
                                         tables.frozen)
                 meta = mc_meta_init(B, N, K, DEVICE)
-                for w in range(MC_CMP_WAVES):
+                for w, iters in enumerate(MC_CMP_ITERS):
                     seeds = (0x13198A2E, 0x03707344, 0x13198A2E ^ 0x03707344, w)
                     bits = None if noise == "kernel" else torch.stack(
                         [counter_bits(7, 8, w * MC_SPARES + g, B, N, DEVICE)
                          for g in range(MC_SPARES)])
-                    drain = w == MC_CMP_WAVES - 1
+                    drain = w == len(MC_CMP_ITERS) - 1
+                    if iters:
+                        state[dead] = float("nan")
                     got = bp_wave_mc(state.clone(), meta.clone(), utab, xtab,
                                      sigma, seeds, bits, gen_bits=bits is None,
-                                     drain=drain, cadence=cadence, **kw)
+                                     iters=iters, drain=drain, cadence=cadence,
+                                     **kw)
                     state, meta, stats = bp_wave_mc(
                         state, meta, utab, xtab, sigma, seeds, bits,
-                        gen_bits=bits is None, drain=drain, cadence=cadence,
-                        engine="plain", **kw)
+                        gen_bits=bits is None, iters=iters, drain=drain,
+                        cadence=cadence, engine="plain", **kw)
                     torch.cuda.synchronize()
                     pairs = [(got[0], state, 1), (got[1], meta, 1),
                              (got[2], stats, 0)]
-                    record("bp_wave_mc", {"preset": name, "noise": noise,
-                                          "cadence": cadence, "wave": w,
-                                          "drain": drain,
+                    record("bp_wave_mc", {"preset": name, "N": N,
+                                          "noise": noise, "cadence": cadence,
+                                          "wave": w, "iters": iters,
+                                          "drain": drain, "sentinel": iters > 0,
                                           "stats": stats.sum(dim=0).tolist()},
                            *frames_equal(pairs, B), B)
 
@@ -1115,49 +1180,42 @@ def hold_and_time(card, name, B, run, axes, flavor=None, **info):
     return statistics.mean(k), statistics.mean(pl), err, chks
 
 
-def phase_wave_timing(card):
-    """Each wave kernel and its plain version at the bench shape (one wave,
-    B=16384, K=8 fused and unfused, K=32 MC; the MC channel at B=8192)
-    through hold_and_time; the fused ES step split into kernel and channel;
-    retired frames/s of the fused and MC wave paths over WAVE_CHUNK steps
-    after a chunk of warmup.  Returns {kernel: (ms, plain ms, largest
-    |kernel - plain|, the plain BP's CHK counts or None)}."""
-    from polardecoding_tpu_torch.models.bp import (bp_wave, bp_wave_fused,
-                                                   bp_wave_mc, mc_delta,
-                                                   mc_tables)
+def phase_k8_wave_timing(card):
+    """The two K=8 wave kernels and their plain versions at the bench shape
+    (one wave of WAVE_PRESET's state after two steps, B=WAVE_BATCH) through
+    hold_and_time, and the fused ES step split into kernel and channel.
+    Returns ({kernel: hold_and_time's result}, {kernel: wave_work of the
+    very inputs timed})."""
+    from polardecoding_tpu_torch.models.bp import bp_wave, bp_wave_fused
     from polardecoding_tpu_torch.ops.channel import awgn_llr, frame_keys
-    from polardecoding_tpu_torch.ops.channel_kernel import mc_channel
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu
-    from polardecoding_tpu_torch.parallel.harness import (_mc_mode_tables,
-                                                          code_tables,
+    from polardecoding_tpu_torch.parallel.harness import (code_tables,
                                                           make_wave_step,
-                                                          make_wave_step_mc,
                                                           payload_from_index)
 
-    out = {}
-    B = WAVE_BATCH
+    out, work = {}, {}
     run = wave_runner(WAVE_PRESET, make_wave_step, wave_iters=WAVE_ITERS)
     for _ in range(2):
         run()
     p, key, sigma = run.preset, run.key, run.sigma
     tables = code_tables(p.code, DEVICE)
     state, fidx, _, _, retire = run.carry
+    _, B, N = state.shape
 
     def channel():
         x = encode_info_mxu(payload_from_index(fidx, tables.pn, p.code.K),
                             tables.g_rows)
         return awgn_llr(x, frame_keys(key, fidx), sigma)
 
-    def own(t, fresh):
-        return t.clone() if fresh else t
-
     channel_ms, llr = cuda_ms(channel, STEP_REPS)
     out["bp_wave_fused"] = hold_and_time(
         card, "bp_wave_fused", B,
-        lambda e, f: bp_wave_fused(own(state, f), llr, retire, WAVE_ITERS,
+        lambda e, f: bp_wave_fused(_own(state, f), llr, retire, WAVE_ITERS,
                                    engine=e),
         (1, 0, 0), flavor=p.decoder.bp_flavor, preset=WAVE_PRESET,
-        wave_iters=WAVE_ITERS)
+        wave_iters=WAVE_ITERS, retired=int(retire.sum()))
+    work["bp_wave_fused"] = wave_work(B, N, True, out["bp_wave_fused"][3],
+                                      retire)
     step_ms, _ = cuda_ms(lambda: run(read=False), STEP_REPS)
     kernel_ms = out["bp_wave_fused"][0]
     emit({"wave_step_split": {"card": card, "preset": WAVE_PRESET, "batch": B,
@@ -1168,10 +1226,32 @@ def phase_wave_timing(card):
                               "kernel_share": kernel_ms / step_ms}})
     out["bp_wave"] = hold_and_time(
         card, "bp_wave", B,
-        lambda e, f: (bp_wave(own(state, f), WAVE_ITERS, engine=e),), (1,),
+        lambda e, f: (bp_wave(_own(state, f), WAVE_ITERS, engine=e),), (1,),
         flavor=p.decoder.bp_flavor, preset=WAVE_PRESET, wave_iters=WAVE_ITERS)
-    del state, llr, run
+    work["bp_wave"] = wave_work(B, N, False, out["bp_wave"][3])
+    return out, work
 
+
+def _own(t, fresh):
+    return t.clone() if fresh else t
+
+
+def phase_wave_timing(card):
+    """Each wave kernel and its plain version at the bench shape (one wave,
+    B=16384, K=8 fused and unfused by phase_k8_wave_timing, K=32 MC; the MC
+    channel at B=8192) through hold_and_time; retired frames/s of the fused
+    and MC wave paths over WAVE_CHUNK steps after a chunk of warmup.
+    Returns ({kernel: (ms, plain ms, largest |kernel - plain|, the plain
+    BP's CHK counts or None)}, the K=8 kernels' wave_work)."""
+    from polardecoding_tpu_torch.models.bp import bp_wave_mc, mc_delta, mc_tables
+    from polardecoding_tpu_torch.ops.channel_kernel import mc_channel
+    from polardecoding_tpu_torch.parallel.harness import (_mc_mode_tables,
+                                                          code_tables,
+                                                          make_wave_step,
+                                                          make_wave_step_mc)
+
+    out, k8_work = phase_k8_wave_timing(card)
+    B = WAVE_BATCH
     fps = {}
     for label, r in (("fused", wave_runner(WAVE_PRESET, make_wave_step,
                                            wave_iters=WAVE_ITERS)),
@@ -1187,14 +1267,14 @@ def phase_wave_timing(card):
     emit({"wave_fps": dict(fps, card=card, batch=B)})
 
     state, meta, stepc, (k0, k1) = r.carry
-    p = r.preset
+    p, key, sigma = r.preset, r.key, r.sigma
     tabs = mc_tables(code_tables(p.code, DEVICE).info_set.cpu().numpy(),
                      p.code.K, p.code.N, DEVICE)
     kw = dict(iters=MC_ITERS, flavor=p.decoder.bp_flavor,
               delta=mc_delta(B, p.code.K), spares=MC_SPARES, cadence=MC_CADENCE)
     out["bp_wave_mc"] = hold_and_time(
         card, "bp_wave_mc", B,
-        lambda e, f: bp_wave_mc(own(state, f), own(meta, f), *tabs, sigma,
+        lambda e, f: bp_wave_mc(_own(state, f), _own(meta, f), *tabs, sigma,
                                 (k0, k1, k0 ^ k1, stepc), engine=e, **kw),
         (1, 1, 0), flavor=p.decoder.bp_flavor, preset=MC_PRESET,
         wave_iters=MC_ITERS, cadence=MC_CADENCE, spares=MC_SPARES)
@@ -1208,7 +1288,7 @@ def phase_wave_timing(card):
         card, "mc_channel", Bc,
         lambda e, f: (mc_channel(m, xtab, sigma, (k0, k1, k0 ^ k1, 0), engine=e),),
         (0,))
-    return out
+    return out, k8_work
 
 
 def probe_inputs(B):
@@ -1503,15 +1583,25 @@ def bp_work(B, N, chks):
     return nbytes, bp_sweep_ops(chks)
 
 
-def wave_work(B, N, fused, chks):
-    """Bytes and operations of one wave: the state [2(n+1), B, N] read and
-    written once, and for the fused wave the LLRs and retire mask in and
-    u_hat and done out; the iterations' CHKs and adds as bp_work counts
-    them (the decide's xors and compares are left out)."""
+def wave_work(B, N, fused, chks, retire=None):
+    """Bytes and operations of one wave of at least one iteration over B
+    slots: per kept slot the planes an iteration reads, L[1..n] and R[0],
+    in and those it writes, L[0..n-1] and R[1..n], out; per slot that the
+    fused wave's `retire` mask ([B] bool, the one the kernel is given)
+    merges, R[0] and its LLR row in and L[n] out besides the 2n; the mask
+    in and u_hat and done out; the iterations' CHKs and adds as bp_work
+    counts them (the decide's xors and compares are left out)."""
+    mask = (isinstance(retire, torch.Tensor) and retire.dtype == torch.bool
+            and tuple(retire.shape) == (B,))
+    if (mask if fused else retire is not None) != fused:
+        raise ValueError(f"wave_work: fused={fused} wants a [{B}] bool retire"
+                         f" mask exactly when fused, got {retire!r:.60}")
     n = N.bit_length() - 1
-    nbytes = 2 * 2 * (n + 1) * B * N * 4
+    row = N * 4
+    retired = int(retire.sum()) if fused else 0
+    nbytes = (B - retired) * (n + 1 + 2 * n) * row
     if fused:
-        nbytes += B * N * 4 + B + B * N + B
+        nbytes += retired * (2 + 2 * n + 1) * row + B + B * N + B
     return nbytes, bp_sweep_ops(chks)
 
 
@@ -1664,7 +1754,8 @@ def main() -> int:
         bp_decode(llr, fr, iters=100)
     chks = {"bp_decode": c}
     del llr, fr
-    for name, (ms, plain_ms, worst, c) in phase_wave_timing(card).items():
+    wave_times, k8_work = phase_wave_timing(card)
+    for name, (ms, plain_ms, worst, c) in wave_times.items():
         times[name] = (ms, plain_ms, max(wave_worst[name], worst))
         chks[name] = c
     phase_profile(card, MAIN_PRESET, MAIN_BATCH,
@@ -1701,8 +1792,7 @@ def main() -> int:
         "bp_decode": bp_work(MAIN_BATCH, N, chks["bp_decode"]),
         "scl_decode": scl_work(SCL_BATCH, N, p.decoder.list_size, frozen),
         "scl_decode_r1": scl_work(SCL_BATCH, N, L, frozen, r1=r1),
-        "bp_wave_fused": wave_work(WAVE_BATCH, N, True, chks["bp_wave_fused"]),
-        "bp_wave": wave_work(WAVE_BATCH, N, False, chks["bp_wave"]),
+        **k8_work,
         "bp_wave_mc": mc_wave_work(WAVE_BATCH, N, refills, chks["bp_wave_mc"]),
         "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N), **probe_bounds}
     emit({"chk_counts": {k: dict(c, zero_share=c["zero"] / c["chks"])

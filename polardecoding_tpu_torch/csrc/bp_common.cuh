@@ -1,22 +1,18 @@
 // Device code shared by the BP kernels (bp_decode.cu, bp_wave.cu,
-// bp_wave_mc.cu): the table-corrected CHK, two forms of one flooding
-// iteration, the decision and the G-matrix rule.
+// bp_wave_mc.cu): the table-corrected CHK, one flooding iteration on the
+// live rows, the decision and the G-matrix rule, and the wave kernels'
+// load and write-back of a slot of the state.
 //
-// Both forms run one frame per block over the butterfly pairs of stage i,
-// (u, u + 2^i) with u = ((v >> i) << (i + 1)) | (v & (2^i - 1)) for v in
-// [0, N/2).  An iteration is an R-sweep over stages 0..n-1 then an L-sweep
-// over n-1..0, each stage after the one before it (the reference's
-// Gauss-Seidel order).  The four butterfly equations keep the plain
-// version's (models/bp.bp_iteration) operand order, and the sources are
-// built with -fmad=false, so no a*b+c is contracted and every result is
-// bit-equal to the plain version's.
+// A block runs one frame over the butterfly pairs of stage i, (u, u + 2^i)
+// with u = ((v >> i) << (i + 1)) | (v & (2^i - 1)) for v in [0, N/2).  An
+// iteration is an R-sweep over stages 0..n-1 then an L-sweep over n-1..0,
+// each stage after the one before it (the reference's Gauss-Seidel order).
+// The four butterfly equations keep the plain version's
+// (models/bp.bp_iteration) operand order, and the sources are built with
+// -fmad=false, so no a*b+c is contracted and every result is bit-equal to
+// the plain version's.
 //
-// `iteration` / `gmat_ok` (bp_wave.cu): the whole (n+1) x N lattices L and
-// R in shared memory (L[n] the channel LLRs, R[0] the frozen row, 999 or
-// 0), N/2 threads, thread t the pair of v = t, and __syncthreads() after
-// every stage.
-//
-// `live_iteration` / `live_gmat_ok` (bp_decode.cu, bp_wave_mc.cu):
+// `live_iteration` / `live_gmat_ok`:
 // - Rows.  Only L[1..n-1] and R[1..n-1] are in shared memory (2(n-1)N
 //   floats: 73,728 bytes at N = 1024, 3 frames per SM).  L[n] (the channel row,
 //   constant) and R[n] (written by the R-sweep's last stage and read only
@@ -45,9 +41,9 @@
 //   N <= 64, where a frame is one warp; the check adds max(0, n-6) and one
 //   reduction.  Loads, stores and refills of the shared rows use each
 //   lane's `home` positions, which lie in the same 64-position window.
-// - The CHK's table.  The sweep is bound by instruction issue: a CHK's
-//   table by compares and selects (`lut`) is 14 operations on the ALU
-//   pipe, which runs at half the FP32 pipe's rate, twice per CHK.  The
+// - The CHK's table.  The sweep is bound by instruction issue: the table
+//   by compares and selects (ops/chk._lut_tree) is 14 operations on the
+//   ALU pipe, which runs at half the FP32 pipe's rate, twice per CHK.  The
 //   sweep takes it as an exact chain on the FP32 pipe (`lut_fma`), and
 //   skips it where both of its arguments are past the last threshold
 //   (`lut_fma_diff`), as they are for most CHKs of a converged frame.
@@ -66,13 +62,6 @@ constexpr float kV0 = 0.65f, kV1 = 0.55f, kV2 = 0.45f, kV3 = 0.35f,
 
 enum Flavor { kMinsumLut = 0, kMinsumLutFast = 1, kSpa = 2 };
 
-// The balanced select tree of ops/chk._lut_tree: a value exactly at a
-// threshold falls in the upper bin, NaN in bin 0.
-__device__ __forceinline__ float lut(float x) {
-  return x >= kT3 ? (x >= kT5 ? (x >= kT6 ? kV7 : kV6) : (x >= kT4 ? kV5 : kV4))
-                  : (x >= kT1 ? (x >= kT2 ? kV3 : kV2) : (x >= kT0 ? kV1 : kV0));
-}
-
 // fma(a, b, c) clamped to [0, 1], NaN to 0 (one FFMA.SAT on the card).
 __device__ __forceinline__ float fma_sat(float a, float b, float c) {
 #ifdef __CUDA_ARCH__
@@ -85,14 +74,15 @@ __device__ __forceinline__ float fma_sat(float a, float b, float c) {
 #endif
 }
 
-// The same table for x = |.| (x >= 0 or NaN) on the FMA pipe: lut computes
-// it with 7 compares and 7 selects, which run at half the FMA pipe's rate
-// and bound the sweep.  Here NaN becomes 0 (bin 0), and from v = kV7 each
+// The table of ops/chk.lut_correction for x = |.| (x >= 0 or NaN) on the
+// FMA pipe: its select tree takes 7 compares and 7 selects, which run at
+// half the FMA pipe's rate and bound the sweep.  A value exactly at a
+// threshold falls in the upper bin; NaN becomes 0 (bin 0), and from v = kV7 each
 // threshold above x adds its step: s = sat(2^32 (kT - x)) is exactly 1 for
 // x < kT (a difference of at least 2^-26 at these thresholds) and 0 for
 // x >= kT, and fma(s, kE, v) rounds v + kE to exactly the next value down
 // the table (kE chosen so; tests/test_torch_bp_rows.py holds the chain
-// against lut on the thresholds, their neighbours, 0, inf and NaN).
+// against the table on the thresholds, their neighbours, 0, inf and NaN).
 constexpr float kH = 0x1p32f;
 constexpr float kE6 = 0x1.99999ap-5f, kE5 = 0x1.99999cp-4f,
                 kE4 = 0x1.999998p-4f, kE3 = 0x1.999998p-4f,
@@ -110,7 +100,7 @@ __device__ __forceinline__ float lut_fma(float x) {
   return fmaf(fma_sat(x, -kH, kT0 * kH), kE0, v);
 }
 
-// The table's difference lut(p) - lut(q) by lut_fma, skipped where both
+// The table's difference at p and q by lut_fma, skipped where both
 // p and q are at or above the last threshold: both values are then kV7
 // and the difference +0, which converged frames give for most CHKs (a
 // NaN fails the test and takes the table).
@@ -120,87 +110,23 @@ __device__ __forceinline__ float lut_fma_diff(float p, float q) {
 }
 
 // The CHK of ops/chk.py in the plain version's operand order, its table
-// by lut (kFma false) or lut_fma_diff (true); the same result either way.
-template <int F, bool kFma = false>
+// by lut_fma_diff.
+template <int F>
 __device__ __forceinline__ float chk(float a, float b) {
   if (F == kMinsumLutFast) {
     const float ap = fabsf(a + b), aq = fabsf(a - b);
-    return 0.5f * (ap - aq) + (kFma ? lut_fma_diff(ap, aq) : lut(ap) - lut(aq));
+    return 0.5f * (ap - aq) + lut_fma_diff(ap, aq);
   }
   const float s = ((a >= 0.f) == (b >= 0.f)) ? 1.f : -1.f;
   const float sm = s * fminf(fabsf(a), fabsf(b));
   if (F == kSpa) {
     return sm + log1pf(expf(-fabsf(a + b))) - log1pf(expf(-fabsf(a - b)));
   }
-  if (!kFma) return sm + (lut(fabsf(a + b)) - lut(fabsf(a - b)));
   // the smaller of |a + b| and |a - b| is, rounded alike, ||a| - |b||, and
   // the larger is no smaller: at or above kT6 both table values are kV7
   // (the skip of lut_fma_diff, tested before a + b and a - b are formed)
   if (fabsf(fabsf(a) - fabsf(b)) >= kT6) return sm + (kV7 - kV7);
   return sm + (lut_fma(fabsf(a + b)) - lut_fma(fabsf(a - b)));
-}
-
-// One flooding iteration; every thread of the block must call it.
-template <int F>
-__device__ __forceinline__ void iteration(float* L, float* R, int n, int N,
-                                          int t) {
-  for (int i = 0; i < n; ++i) {
-    const int d = 1 << i;
-    const int u = ((t >> i) << (i + 1)) | (t & (d - 1));
-    const int l = u + d;
-    const float ru = R[i * N + u], rd = R[i * N + l];
-    const float lu = L[(i + 1) * N + u], ld = L[(i + 1) * N + l];
-    R[(i + 1) * N + u] = chk<F>(ru, ld + rd);
-    R[(i + 1) * N + l] = rd + chk<F>(ru, lu);
-    __syncthreads();
-  }
-  for (int i = n - 1; i >= 0; --i) {
-    const int d = 1 << i;
-    const int u = ((t >> i) << (i + 1)) | (t & (d - 1));
-    const int l = u + d;
-    const float ru = R[i * N + u], rd = R[i * N + l];
-    const float lu = L[(i + 1) * N + u], ld = L[(i + 1) * N + l];
-    L[i * N + u] = chk<F>(lu, ld + rd);
-    L[i * N + l] = ld + chk<F>(ru, lu);
-    __syncthreads();
-  }
-}
-
-// The hard decision of position p: 0 on a frozen bit (R[0] > 0), else
-// sign(L[0] + R[0]).
-__device__ __forceinline__ uint8_t decision(const float* L, const float* R,
-                                            int p) {
-  return (R[p] > 0.f) ? 0 : (L[p] + R[p] < 0.f ? 1 : 0);
-}
-
-// The G-matrix rule: the decision re-encoded (n xor stages in x, N bytes of
-// shared scratch) equals the channel-stage hard decision sign(L[n] + R[n])
-// at every position.  Every thread of the block must call it; the result
-// is the same in all of them.
-__device__ __forceinline__ bool gmat_ok(const float* L, const float* R,
-                                        uint8_t* x, int n, int N, int t) {
-  const int half = N >> 1;
-  for (int p = t; p < N; p += half) x[p] = decision(L, R, p);
-  __syncthreads();
-  for (int i = 0; i < n; ++i) {
-    const int d = 1 << i;
-    const int u = ((t >> i) << (i + 1)) | (t & (d - 1));
-    x[u] ^= x[u + d];
-    __syncthreads();
-  }
-  int ok = 1;
-  for (int p = t; p < N; p += half) {
-    const uint8_t post = (L[n * N + p] + R[n * N + p] < 0.f) ? 1 : 0;
-    ok &= (x[p] == post);
-  }
-  return __syncthreads_and(ok) != 0;
-}
-
-// Shared memory of one `iteration` block: the two lattices and the encode
-// scratch.
-inline size_t lattice_bytes(int n) {
-  const size_t N = size_t{1} << n;
-  return 2 * static_cast<size_t>(n + 1) * N * sizeof(float) + N;
 }
 
 // ---------------------------------------------------------------------------
@@ -252,8 +178,7 @@ __device__ __forceinline__ int home(int v, int N) {
 // pair at stages 1..n-2 is lane 0's plus N/2 (2^i divides T).  The stages
 // between 1 and n-2 run in two loops, those whose barrier before them is a
 // __syncwarp and those where it is a __syncthreads (step_sync's rule).
-// The CHK takes its table by lut_fma.  Every thread of the block must call
-// it.
+// Every thread of the block must call it.
 template <int F>
 __device__ __forceinline__ void live_iteration(float* L, float* R, Ends& e,
                                                int n, int N, int t,
@@ -273,11 +198,11 @@ __device__ __forceinline__ void live_iteration(float* L, float* R, Ends& e,
       const int l = u + d;
       const float ru = Ri[u], rd = Ri[l], lu = Ln[u], ld = Ln[l];
       if (l_side) {
-        out[u] = chk<F, true>(lu, ld + rd);
-        out[l] = ld + chk<F, true>(ru, lu);
+        out[u] = chk<F>(lu, ld + rd);
+        out[l] = ld + chk<F>(ru, lu);
       } else {
-        out[u] = chk<F, true>(ru, ld + rd);
-        out[l] = rd + chk<F, true>(ru, lu);
+        out[u] = chk<F>(ru, ld + rd);
+        out[l] = rd + chk<F>(ru, lu);
       }
     }
   };
@@ -289,8 +214,8 @@ __device__ __forceinline__ void live_iteration(float* L, float* R, Ends& e,
     const int u = 2 * (t + k * T);
     const float2 l1 = *reinterpret_cast<const float2*>(L + u);
     float2 r1;
-    r1.x = chk<F, true>(e.r0[k][0], l1.y + e.r0[k][1]);
-    r1.y = e.r0[k][1] + chk<F, true>(e.r0[k][0], l1.x);
+    r1.x = chk<F>(e.r0[k][0], l1.y + e.r0[k][1]);
+    r1.y = e.r0[k][1] + chk<F>(e.r0[k][0], l1.x);
     *reinterpret_cast<float2*>(R + u) = r1;
   }
   for (int i = 1; i < low; ++i) {
@@ -311,10 +236,10 @@ __device__ __forceinline__ void live_iteration(float* L, float* R, Ends& e,
       const int v = t + k * T;
       const float ru = Ri[v], rd = Ri[v + half];
       const float lu = e.ln[k][0], ld = e.ln[k][1];
-      const float c = chk<F, true>(ru, lu);  // R[n, d] and L[n-1, d] add it
-      e.rn[k][0] = chk<F, true>(ru, ld + rd);
+      const float c = chk<F>(ru, lu);  // R[n, d] and L[n-1, d] add it
+      e.rn[k][0] = chk<F>(ru, ld + rd);
       e.rn[k][1] = rd + c;
-      Lo[v] = chk<F, true>(lu, ld + rd);
+      Lo[v] = chk<F>(lu, ld + rd);
       Lo[v + half] = ld + c;
     }
   }
@@ -332,8 +257,8 @@ __device__ __forceinline__ void live_iteration(float* L, float* R, Ends& e,
   for (int k = 0; k < kPairs; ++k) {
     const int u = 2 * (t + k * T);
     const float2 l1 = *reinterpret_cast<const float2*>(L + u);
-    e.l0[k][0] = chk<F, true>(l1.x, l1.y + e.r0[k][1]);
-    e.l0[k][1] = l1.y + chk<F, true>(e.r0[k][0], l1.x);
+    e.l0[k][0] = chk<F>(l1.x, l1.y + e.r0[k][1]);
+    e.l0[k][1] = l1.y + chk<F>(e.r0[k][0], l1.x);
   }
 }
 
@@ -395,6 +320,78 @@ __device__ __forceinline__ bool live_gmat_ok(const Ends& e, uint8_t* x,
          hi == (e.ln[k][1] + e.rn[k][1] < 0.f ? 1 : 0);
   }
   return block_and(ok, T, wm);
+}
+
+// A slot of the stage-major state [2(n+1), B, N] into the live rows and
+// `e`: st(s) is the slot's row of plane s (L[s] is plane s, R[s] plane
+// n + 1 + s).  An iteration reads only L[1..n] and R[0] and writes the
+// other planes before it reads them, so those (R[1..n-1], R[n], L[0]) are
+// read only where `dead` (a launch of no iteration) and are left unset
+// otherwise.  A slot that restarts reads no plane but R[0]: it takes L[n]
+// from ln_of(p) and 0 for every other plane, a select, so that a kept
+// -0.0 survives.  Shared rows are written at each lane's home positions,
+// so the load needs no block barrier.
+template <class St, class LnOf>
+__device__ __forceinline__ void load_slot(float* L, float* R, Ends& e,
+                                          const St& st, int n, int N, int t,
+                                          bool restart, bool dead,
+                                          const LnOf& ln_of) {
+  const int T = N / (2 * kPairs);
+  const int half = N >> 1;
+  const int hs = home_step(N);
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int v = t + k * T;
+    const int h = home(v, N);
+    for (int s = 1; s < n; ++s) {
+      for (int c = 0; c < 2; ++c) {
+        const int q = h + c * hs;
+        L[(s - 1) * N + q] = restart ? 0.f : st(s)[q];
+        if (dead) R[(s - 1) * N + q] = restart ? 0.f : st(n + 1 + s)[q];
+      }
+    }
+    for (int j = 0; j < 2; ++j) {
+      const int p = v + j * half;
+      e.ln[k][j] = restart ? ln_of(p) : st(n)[p];
+      e.rn[k][j] = (restart || !dead) ? 0.f : st(2 * n + 1)[p];
+      const int q = 2 * v + j;
+      e.r0[k][j] = st(n + 1)[q];
+      e.l0[k][j] = (restart || !dead) ? 0.f : st(0)[q];
+    }
+  }
+}
+
+// The live rows and `e` back to the slot's planes (st as load_slot's):
+// L[0..n-1] and R[1..n], and L[n] where `new_ln` (the slot restarted in
+// this launch); R[0] is never written.  Called after the last iteration;
+// the warp barrier orders this warp's last L-sweep stages before it.
+template <class St>
+__device__ __forceinline__ void store_slot(const float* L, const float* R,
+                                           const Ends& e, const St& st, int n,
+                                           int N, int t, unsigned wm,
+                                           bool new_ln) {
+  const int T = N / (2 * kPairs);
+  const int half = N >> 1;
+  const int hs = home_step(N);
+  warp_sync(wm);
+#pragma unroll
+  for (int k = 0; k < kPairs; ++k) {
+    const int v = t + k * T;
+    const int h = home(v, N);
+    for (int s = 1; s < n; ++s) {
+      for (int c = 0; c < 2; ++c) {
+        const int q = h + c * hs;
+        st(s)[q] = L[(s - 1) * N + q];
+        st(n + 1 + s)[q] = R[(s - 1) * N + q];
+      }
+    }
+    for (int j = 0; j < 2; ++j) {
+      const int p = v + j * half;
+      if (new_ln) st(n)[p] = e.ln[k][j];
+      st(2 * n + 1)[p] = e.rn[k][j];
+      st(0)[2 * v + j] = e.l0[k][j];
+    }
+  }
 }
 
 // Shared memory of one live-row block: rows 1..n-1 of both lattices, and

@@ -12,13 +12,14 @@
 // bytes at N = 1024, plus the check's N bytes), L[n] and R[n] in registers
 // of the thread owning (v, v + N/2) at stage n-1, R[0] and L[0] in those of
 // the thread owning (2v, 2v + 1) at stage 0.  The slot is loaded from and
-// written back to the stage-major state [2(n+1), B, N] in place, every
-// plane, so the state stays the plain version's; the planes that an
-// iteration writes before it reads them (R[1..n-1], L[0], R[n]) are read
-// only when iters = 0.  The TPU kernel's MXU work becomes plain code: its
-// one-hot table matmuls are row reads of u_table / x_table at the
-// generation's PN offset m, and its lane reductions are block ANDs and
-// counts.  Generation g of a wave has offset m + (g+1) * delta (mod 63)
+// written back to the stage-major state [2(n+1), B, N] in place by
+// bp::load_slot and bp::store_slot, shared with bp_wave.cu: the planes that
+// an iteration writes before it reads them (R[1..n-1], L[0], R[n]) are read
+// only when iters = 0, R[0] is never written and L[n] only where the slot
+// restarted (a head merge or a refill).  The TPU kernel's MXU work
+// becomes plain code: its one-hot table matmuls are row reads of u_table /
+// x_table at the generation's PN offset m, and its lane reductions are
+// block ANDs and counts.  Generation g of a wave has offset m + (g+1) * delta (mod 63)
 // and noise words threefry2x32 under the run key at counter (step * spares
 // + g, slot * N + lane), or bits[g, slot, lane]; since the words are
 // counter-based, a generation's LLRs are computed when the slot consumes
@@ -128,29 +129,10 @@ __global__ void __launch_bounds__(kMaxThreads, 3) bp_wave_mc_kernel(McArgs a) {
   // head merge: a pending slot starts generation 0's frame (every plane 0
   // but L[n], its LLRs, and R[0])
   const bool rm = !a.drain && pend_in > 0.5f;
-  const bool dead = a.iters == 0;  // the planes an iteration overwrites
   const float m0 = gen_m(0);
   bp::Ends e;
-#pragma unroll
-  for (int k = 0; k < kPairs; ++k) {
-    const int v = t + k * T;
-    const int h = bp::home(v, N);
-    for (int s = 1; s < n; ++s) {
-      for (int c = 0; c < 2; ++c) {
-        const int q = h + c * hs;
-        L[(s - 1) * N + q] = rm ? 0.f : st(s)[q];
-        if (dead) R[(s - 1) * N + q] = rm ? 0.f : st(n + 1 + s)[q];
-      }
-    }
-    for (int j = 0; j < 2; ++j) {
-      const int p = v + j * half;
-      e.ln[k][j] = rm ? gen_llr(0, m0, p) : st(n)[p];
-      e.rn[k][j] = (rm || !dead) ? 0.f : st(2 * n + 1)[p];
-      const int q = 2 * v + j;
-      e.r0[k][j] = st(n + 1)[q];
-      e.l0[k][j] = (rm || !dead) ? 0.f : st(0)[q];
-    }
-  }
+  bp::load_slot(L, R, e, st, n, N, t, rm, a.iters == 0,
+                [&](int p) { return gen_llr(0, m0, p); });
   float m_c = rm ? m0 : m_in;
   float it_c = rm ? 0.f : it_in;
   int ptr = rm ? 1 : 0;  // the next generation to consume; spares - ptr left
@@ -221,30 +203,19 @@ __global__ void __launch_bounds__(kMaxThreads, 3) bp_wave_mc_kernel(McArgs a) {
     if (last && done && !has) pend_c = 1.f;
   }
 
-  __syncwarp(wm);  // the last L-sweep's stages 5..1 wrote rows of this warp
 #pragma unroll
   for (int k = 0; k < kPairs; ++k) {
-    const int v = t + k * T;
-    const int h = bp::home(v, N);
-    for (int s = 1; s < n; ++s) {
-      st(s)[h] = L[(s - 1) * N + h];
-      st(s)[h + hs] = L[(s - 1) * N + h + hs];
-      st(n + 1 + s)[h] = R[(s - 1) * N + h];
-      st(n + 1 + s)[h + hs] = R[(s - 1) * N + h + hs];
-    }
     for (int j = 0; j < 2; ++j) {
-      const int p = v + j * half;
-      st(n)[p] = e.ln[k][j];
-      st(2 * n + 1)[p] = e.rn[k][j];
-      const size_t q = row + 2 * v + j;
-      st(n + 1)[2 * v + j] = e.r0[k][j];
-      st(0)[2 * v + j] = e.l0[k][j];
-      a.meta[q] = m_c;
-      a.meta[plane + q] = true_u(2 * v + j);
-      a.meta[2 * plane + q] = it_c;
-      a.meta[3 * plane + q] = pend_c;
+      const int q = 2 * (t + k * T) + j;
+      a.meta[row + q] = m_c;
+      a.meta[plane + row + q] = true_u(q);
+      a.meta[2 * plane + row + q] = it_c;
+      a.meta[3 * plane + row + q] = pend_c;
     }
   }
+  // L[n] changed where the slot restarted (a head merge or a refill); the
+  // meta first, or the kernel for n at run time spills
+  bp::store_slot(L, R, e, st, n, N, t, wm, ptr > 0);
   if (t == 0) {
     a.stats[3 * static_cast<size_t>(slot)] = sums[0];
     a.stats[3 * static_cast<size_t>(slot) + 1] = sums[1];

@@ -6,7 +6,8 @@ and bp_wave_fused_plain.
 
 Both update the state in place, as the TPU kernels do through
 input_output_aliases, and return it.  `LAUNCHES` counts each kernel's
-launches, so a run can show that its main path went through them.
+launches, so a run can show that its main path went through them;
+`bp_wave_shape` reports a kernel's launch shape on the card.
 """
 from __future__ import annotations
 
@@ -15,7 +16,7 @@ import ctypes
 import torch
 
 from polardecoding_tpu_torch.ops import _build
-from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS
+from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, launch_shape
 
 LAUNCHES = {"bp_wave_fused": 0, "bp_wave": 0}
 SOURCE = "polardecoding_tpu_torch/csrc/bp_wave.cu"
@@ -24,6 +25,15 @@ REPLACES = {"bp_wave_fused": "polardecoding_tpu/ops/pallas/bp_kernel.py:306",
 
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+
+
+def bp_wave_shape(N: int, flavor: str = "minsum_lut", fused: bool = False,
+                  check_every: int = 0) -> dict:
+    """The launch shape of the unfused (or, with fused, the fused) wave
+    kernel at (N, flavor, check_every) on the current card
+    (ops/bp_kernel.launch_shape)."""
+    return launch_shape("bp_wave", "bp_wave_shape", N, FLAVORS[flavor],
+                        int(fused), check_every)
 
 
 def check_state(state: torch.Tensor, who: str):

@@ -3,16 +3,23 @@
 
   python scripts/torch_bp_parts.py [--baseline CHECKOUT] [--reps 5]
 
-Times the two kernels on the live-row sweep of csrc/bp_common.cuh at their
-main paths' shapes:
+Times the four kernels on the live-row sweep of csrc/bp_common.cuh at
+their main paths' shapes:
 
-  bp_decode   csrc/bp_decode.cu, BP_1024 at B=8192, 100 iterations of
-              minsum_lut, LLRs of the all-zero codeword at 2.0 dB from a
-              seed (the frame step's decode);
-  bp_wave_mc  csrc/bp_wave_mc.cu, one wave of BP_1024_FASTCHK at B=16384,
-              K=32, cadence 2, 4 spares, from the state and meta of
-              make_wave_step_mc after 8 waves (bench.py's wave leg); every
-              timing starts from that state.
+  bp_decode      csrc/bp_decode.cu, BP_1024 at B=8192, 100 iterations of
+                 minsum_lut, LLRs of the all-zero codeword at 2.0 dB from a
+                 seed (the frame step's decode);
+  bp_wave        csrc/bp_wave.cu unfused, one wave of BP_1024_ES at
+                 B=16384, K=8, from the state of make_wave_step (fused)
+                 after 8 steps (run_point_waves' fused=False path);
+  bp_wave_fused  csrc/bp_wave.cu fused, the same wave with that step's
+                 retire mask and the fresh LLRs of its slots' frames
+                 (run_point's early-stop path);
+  bp_wave_mc     csrc/bp_wave_mc.cu, one wave of BP_1024_FASTCHK at B=16384,
+                 K=32, cadence 2, 4 spares, from the state and meta of
+                 make_wave_step_mc after 8 waves (bench.py's wave leg).
+
+Every timing of a wave starts from its state.
 
 Each kernel six ways, in turns (the first order, then the reverse):
 
@@ -24,24 +31,26 @@ Each kernel six ways, in turns (the first order, then the reverse):
   block_barriers          a scratch copy whose sweep takes __syncthreads()
                           at every stage: what the warp-level stages buy;
   padded_block_barriers   both;
-  select_lut              a scratch copy whose sweep takes the CHK table by
-                          compares and selects (bp::lut) instead of the FMA
-                          chain and its skip (bp::lut_fma, lut_fma_diff):
-                          what moving the table to the FMA pipe buys;
+  select_lut              a scratch copy whose CHK takes the table by the
+                          select tree of ops/chk._lut_tree (SELECT_LUT,
+                          written into the copy) instead of the FMA chain
+                          and its skip (bp::lut_fma, lut_fma_diff): what
+                          moving the table to the FMA pipe buys;
   runtime_n               a scratch copy that launches the instance with n
                           taken at run time instead of the one compiled for
                           N = 1024: what the constant shape buys.
 
 The scratch copies are built with the port's flags into
-polardecoding_tpu_torch/_build/parts/ and each must give the full kernel's
+polardecoding_tpu_torch/_build/parts/ (one per source: the two wave kernels
+share csrc/bp_wave.cu) and each must give the full kernel's
 outputs bit for bit.  Each reading is the median of --reps CUDA-event
 timings of one launch after a warmup, with the launch shape (threads, shared
 memory and frames per SM from the occupancy query, registers, local memory)
 and the compiler's register and spill lines; where the toolkit has
 cuobjdump, also each build's instruction mix in the kernel of the main
-path's flavor (SASS opcodes by the unit that runs them).  With --baseline, also the two
-kernels of another checkout of the repository (its polardecoding_tpu_torch),
-through its bp_decode_cuda and bp_wave_mc_cuda in a subprocess, in turns
+path's flavor (SASS opcodes by the unit that runs them).  With --baseline,
+also the four kernels of another checkout of the repository (its
+polardecoding_tpu_torch), through its wrappers in a subprocess, in turns
 with this one's (baseline, this, this, baseline), and a digest of the
 outputs, equal across checkouts when the kernels agree.  Prints one JSON
 line per reading with the card's name and power limit; exits 2 without a
@@ -67,13 +76,31 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, DECODE_B, ITERS, EBN0_DB = 1024, 8192, 100, 2.0
 MC_PRESET, MC_B, MC_K, MC_CADENCE, MC_WARMUP = "BP_1024_FASTCHK", 16384, 32, 2, 8
+WAVE_PRESET, WAVE_B, WAVE_K, WAVE_WARMUP = "BP_1024_ES", 16384, 8, 8
 PADDED_FRAME_BYTES = 91136
-KERNELS = ("bp_decode", "bp_wave_mc")
+KERNELS = ("bp_decode", "bp_wave", "bp_wave_fused", "bp_wave_mc")
+# each kernel's source, csrc/<source>.cu
+SOURCE = {"bp_decode": "bp_decode", "bp_wave": "bp_wave",
+          "bp_wave_fused": "bp_wave", "bp_wave_mc": "bp_wave_mc"}
 # the texts that the scratch copies edit
 SMEM_AT = "*smem = bp::live_bytes("
 WARP_SYNC_AT = "__device__ __forceinline__ void warp_sync(unsigned wm) {\n"
-LIVE_CHK_AT = "chk<F, true>("
 MAIN_N_AT = "return n == kMainN ? "
+# select_lut: the select tree of ops/chk._lut_tree (a value exactly at a
+# threshold falls in the upper bin, NaN in bin 0), put before the CHK, and
+# the CHK's table taken by it, without the skip
+CHK_AT = "// The CHK of ops/chk.py"
+SELECT_LUT = """__device__ __forceinline__ float lut(float x) {
+  return x >= kT3 ? (x >= kT5 ? (x >= kT6 ? kV7 : kV6) : (x >= kT4 ? kV5 : kV4))
+                  : (x >= kT1 ? (x >= kT2 ? kV3 : kV2) : (x >= kT0 ? kV1 : kV0));
+}
+
+"""
+SELECT_CHK = (("lut_fma_diff(ap, aq);", "(lut(ap) - lut(aq));"),
+              ("  if (fabsf(fabsf(a) - fabsf(b)) >= kT6) return sm + (kV7 - kV7);\n",
+               ""),
+              ("lut_fma(fabsf(a + b)) - lut_fma(fabsf(a - b))",
+               "lut(fabsf(a + b)) - lut(fabsf(a - b))"))
 VARIANTS = ("padded", "block_barriers", "padded_block_barriers", "select_lut",
             "runtime_n")
 # SASS opcodes by the unit that issues them: the FP32 pipe (adds,
@@ -85,9 +112,10 @@ OPCLASS = {"fp32": ("FADD", "FMUL", "FFMA"),
            "imad": ("IMAD",),
            "shared": ("LDS", "STS"),
            "barrier": ("BAR", "WARPSYNC", "VOTE")}
-# the main path's instance: template flavor F and constant n = 10 (the
-# runtime_n copy launches the one with n at run time, NC = 0)
-MAIN_FLAVOR = {"bp_decode": "ILi0E", "bp_wave_mc": "ILi1E"}
+# the main path's instance: its template arguments before the constant
+# n = 10 (the runtime_n copy launches the one with n at run time, NC = 0)
+MAIN_FLAVOR = {"bp_decode": "ILi0E", "bp_wave": "ILi0ELb0ELb0E",
+               "bp_wave_fused": "ILi0ELb1ELb0E", "bp_wave_mc": "ILi1E"}
 
 
 def emit(obj):
@@ -127,6 +155,46 @@ def median_ms(launch, reps, before=None):
         if r:
             ts.append(a.elapsed_time(b))
     return sorted(ts)[len(ts) // 2]
+
+
+def wave_cases(sigma):
+    """{bp_wave, bp_wave_fused: (run(), outputs(), before)} at the wave
+    kernels' main shape: the state, retire mask and fresh LLRs of
+    make_wave_step (fused) after WAVE_WARMUP steps."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.bp_wave_kernel import (bp_wave_cuda,
+                                                            bp_wave_fused_cuda)
+    from polardecoding_tpu_torch.ops.channel import (awgn_llr, fold_in,
+                                                     frame_keys, prng_key)
+    from polardecoding_tpu_torch.ops.encode import encode_info_mxu
+    from polardecoding_tpu_torch.parallel.harness import (code_tables,
+                                                          make_wave_step,
+                                                          payload_from_index)
+
+    p = preset(WAVE_PRESET)
+    flavor = p.decoder.bp_flavor
+    init, step, _ = make_wave_step(p, WAVE_B, WAVE_K, "cuda")
+    key = fold_in(prng_key(p.sweep.seed, "cuda"), int(round(EBN0_DB * 100)))
+    carry = init(key, 0, sigma)
+    for _ in range(WAVE_WARMUP):
+        carry, _ = step(key, sigma, carry)
+    state0, fidx, _, _, retire = carry
+    tables = code_tables(p.code, "cuda")
+    llr = awgn_llr(encode_info_mxu(payload_from_index(fidx, tables.pn, p.code.K),
+                                   tables.g_rows), frame_keys(key, fidx), sigma)
+    plain, fused = state0.clone(), state0.clone()
+    u = torch.empty((WAVE_B, N), dtype=torch.int8, device="cuda")
+    done = torch.empty(WAVE_B, dtype=torch.bool, device="cuda")
+
+    def run_fused():
+        _, u1, d1 = bp_wave_fused_cuda(fused, llr, retire, WAVE_K, flavor)
+        u.copy_(u1)
+        done.copy_(d1)
+
+    return {"bp_wave": (lambda: bp_wave_cuda(plain, WAVE_K, flavor),
+                        lambda: (plain,), lambda: plain.copy_(state0)),
+            "bp_wave_fused": (run_fused, lambda: (fused, u, done),
+                              lambda: fused.copy_(state0))}
 
 
 def cases():
@@ -171,41 +239,44 @@ def cases():
 
     return {"bp_decode": (lambda: u.copy_(bp_decode_cuda(ch, fr, ITERS)),
                           lambda: (u,), None),
+            **wave_cases(sigma),
             "bp_wave_mc": (mc, lambda: (state, meta, stats), restore)}
 
 
-def start_scratch(_build, kernel, variant):
-    """Write the scratch copy `variant` of csrc/<kernel>.cu (with copies of
+def start_scratch(_build, source, variant):
+    """Write the scratch copy `variant` of csrc/<source>.cu (with copies of
     the shared headers beside it) into _build/parts/ and start nvcc on it
     with the port's flags; returns (process, library path)."""
-    d = os.path.join(_build.BUILD_DIR, "parts", f"{kernel}_{variant}")
+    d = os.path.join(_build.BUILD_DIR, "parts", f"{source}_{variant}")
     os.makedirs(d, exist_ok=True)
     for f in os.listdir(_build.CSRC):
-        if f.endswith(".cuh") or f == kernel + ".cu":
+        if f.endswith(".cuh") or f == source + ".cu":
             shutil.copy(os.path.join(_build.CSRC, f), d)
 
-    def edit(name, old, new, every=False):
+    def edit(name, old, new):
         path = os.path.join(d, name)
         with open(path) as fh:
             src = fh.read()
-        if src.count(old) != 1 and not (every and old in src):
+        if src.count(old) != 1:
             raise RuntimeError(f"{name}: {old!r} is not where expected")
         with open(path, "w") as fh:
             fh.write(src.replace(old, new))
 
     if "padded" in variant:
-        edit(kernel + ".cu", SMEM_AT,
+        edit(source + ".cu", SMEM_AT,
              f"*smem = {PADDED_FRAME_BYTES} + 0 * bp::live_bytes(")
     if "block_barriers" in variant:
         edit("bp_common.cuh", WARP_SYNC_AT, WARP_SYNC_AT + "  __syncthreads();\n"
              "  return;\n")
-    if variant == "select_lut":  # every CHK of the live-row sweep
-        edit("bp_common.cuh", LIVE_CHK_AT, "chk<F, false>(", every=True)
+    if variant == "select_lut":  # every CHK of the sweep
+        edit("bp_common.cuh", CHK_AT, SELECT_LUT + CHK_AT)
+        for old, new in SELECT_CHK:
+            edit("bp_common.cuh", old, new)
     if variant == "runtime_n":
-        edit(kernel + ".cu", MAIN_N_AT, "return false && n == kMainN ? ")
-    so = os.path.join(d, kernel + ".so")
+        edit(source + ".cu", MAIN_N_AT, "return false && n == kMainN ? ")
+    so = os.path.join(d, source + ".so")
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", so,
-           os.path.join(d, kernel + ".cu")]
+           os.path.join(d, source + ".cu")]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), so
 
@@ -220,9 +291,9 @@ def finish_scratch(variant, proc, so):
 
 
 def instruction_mix(so, kernel, variant):
-    """{class: count} of the SASS of csrc/<kernel>.cu's kernel in its main
-    path's flavor, in the instance the variant launches at N = 1024, in the
-    library `so` (OPCLASS), or None without cuobjdump."""
+    """{class: count} of the SASS of `kernel` in its main path's flavor and
+    mode, in the instance the variant launches at N = 1024, in the library
+    `so` (OPCLASS), or None without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -233,7 +304,7 @@ def instruction_mix(so, kernel, variant):
     for line in out.stdout.splitlines():
         if "Function :" in line:
             nc = "Li0EE" if variant == "runtime_n" else "Li10EE"
-            inside = (f"{kernel}_kernel" in line
+            inside = (f"{SOURCE[kernel]}_kernel" in line
                       and MAIN_FLAVOR[kernel] + nc in line)
             continue
         if not inside or "/*" not in line or ";" not in line:
@@ -254,23 +325,26 @@ def ptxas_lines(log):
 
 
 @contextlib.contextmanager
-def library(_build, kernel, lib):
-    """The port's wrappers launch `lib` as csrc/<kernel>.cu's library."""
-    old = _build._libs.get(kernel)
-    _build._libs[kernel] = lib
+def library(_build, source, lib):
+    """The port's wrappers launch `lib` as csrc/<source>.cu's library."""
+    old = _build._libs.get(source)
+    _build._libs[source] = lib
     try:
         yield
     finally:
-        _build._libs[kernel] = old
+        _build._libs[source] = old
 
 
 def shape_of(kernel):
     from polardecoding_tpu_torch.ops.bp_kernel import bp_decode_shape
+    from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_shape
     from polardecoding_tpu_torch.ops.bp_wave_mc_kernel import bp_wave_mc_shape
 
     if kernel == "bp_decode":
         return bp_decode_shape(N)
-    return bp_wave_mc_shape(N, "minsum_lut_fast")
+    if kernel == "bp_wave_mc":
+        return bp_wave_mc_shape(N, "minsum_lut_fast")
+    return bp_wave_shape(N, "minsum_lut", fused=kernel == "bp_wave_fused")
 
 
 def parts(reps, card):
@@ -279,18 +353,21 @@ def parts(reps, card):
     _build.build_all()
     runs = cases()
     summary = {}
-    started = {}
-    for kernel in KERNELS:  # every scratch build at once
+    started, built = {}, {}
+    for source in sorted(set(SOURCE.values())):  # every scratch build at once
         for variant in VARIANTS:
-            started[kernel, variant] = start_scratch(_build, kernel, variant)
+            started[source, variant] = start_scratch(_build, source, variant)
     for kernel in KERNELS:
         run, outputs, before = runs[kernel]
-        with open(_build._target(kernel)[:-3] + ".log") as f:
-            libs = {"full": (_build.load(kernel), ptxas_lines(f.read()))}
-        paths = {"full": _build._target(kernel)}
-        for (k, variant), job in started.items():
-            if k == kernel:
-                libs[variant] = finish_scratch(variant, *job)
+        source = SOURCE[kernel]
+        with open(_build._target(source)[:-3] + ".log") as f:
+            libs = {"full": (_build.load(source), ptxas_lines(f.read()))}
+        paths = {"full": _build._target(source)}
+        for (s, variant), job in started.items():
+            if s == source:
+                if (s, variant) not in built:
+                    built[s, variant] = finish_scratch(variant, *job)
+                libs[variant] = built[s, variant]
                 paths[variant] = job[1]
         for name, so in paths.items():
             emit({"bp_part_sass": {"kernel": kernel, "variant": name,
@@ -301,7 +378,7 @@ def parts(reps, card):
         for turn, names in enumerate((order, order[::-1])):
             for name in names:
                 lib, ptxas = libs[name]
-                with library(_build, kernel, lib):
+                with library(_build, source, lib):
                     ms = median_ms(run, reps, before)
                     shape = shape_of(kernel)
                 got = [t.clone() for t in outputs()]
@@ -329,7 +406,7 @@ def _bits_equal(a, b):
 
 
 def kernel_only(reps, card):
-    """The two kernels of the package on sys.path, through its wrappers."""
+    """The four kernels of the package on sys.path, through its wrappers."""
     runs = cases()
     root = os.environ.get("BP_PARTS_ROOT", ROOT)
     for kernel in KERNELS:

@@ -14,8 +14,9 @@ against both packages on the CPU:
   keep each warp inside its own 64 positions, thread t's stage-0 and
   stage-(n-1) pairs are (2t, 2t+1) and (t, t+N/2), and the barrier rule
   (`step_sync`) leaves no read-after-write or write-after-read between two
-  warps without a block barrier, over two iterations and the G-matrix
-  check, for every N from 8 to 1024 at two pairs per thread;
+  warps without a block barrier, over each kernel's load, two iterations,
+  its G-matrix checks, refills and write-back, for every N from 8 to 1024
+  at two pairs per thread;
 - the saturation that the kernels' CHK skips and chip_smoke.py's bound
   counts: where ops/chk.table_zero holds, the table difference is +0 in
   both packages and the CHK needs no table, and chip_smoke.counted_chks
@@ -205,11 +206,23 @@ def _block_sync(a, b):
     return a != b and (a >= WARP_STAGES or b >= WARP_STAGES)
 
 
-def _schedule(n, P):
-    """The kernels' phases over two iterations and a check, as (stage,
-    block barrier before it, accesses): an access is (row, position,
-    thread, write).  Rows: ("L", i) and ("R", i) for i in 1..n-1, "x" the
-    check's scratch; the end rows are registers and not listed."""
+# the kernels' phases after the load (the wave kernels': with the merge):
+# "it" an iteration, "check" the G-matrix rule, "refill" the MC kernel's
+# rewrite of the shared rows, "store" the write-back; the MC kernel checks
+# after each iteration, the fused wave kernel latches at its checks or
+# decides once after the last iteration, the unfused one only stores
+KERNEL_PHASES = {
+    "mc": ("it", "check", "refill", "it", "check", "store"),
+    "wave_latched": ("it", "check", "it", "check", "store"),
+    "wave_decide": ("it", "it", "check", "store"),
+    "wave_unfused": ("it", "it", "store")}
+
+
+def _schedule(n, P, kernel="mc"):
+    """A kernel's phases (KERNEL_PHASES) as (stage, block barrier before
+    it, accesses): an access is (row, position, thread, write).  Rows:
+    ("L", i) and ("R", i) for i in 1..n-1, "x" the check's scratch; the end
+    rows are registers and not listed."""
     N = 1 << n
     T = N // (2 * P)
     lanes = [(t, t + k * T) for t in range(T) for k in range(P)]
@@ -236,30 +249,34 @@ def _schedule(n, P):
                 for row in [(side, i) for side in "LR" for i in shared]]
 
     phases = [(0, False, at_home(True))]
-    for it in range(2):
-        stages = [("R", i) for i in range(n)] + [("L", i) for i in range(n - 1, -1, -1)]
-        prev = phases[-1][0]
-        for k, (side, i) in enumerate(stages):
-            # the sweep opens with a __syncwarp; the turn shares a stage
-            block = _block_sync(prev, i) if k else False
-            phases.append((i, block, sweep_stage(side, i)))
-            prev = i
-        # the check: decisions at stage 0's pairs, xor stages 0..n-2, the
-        # last xor and the compare at stage n-1's pairs
-        phases.append((0, False, [("x", p, t, True) for t, v in lanes
-                                  for p in _pair(v, 0)]))
-        for i in range(n - 1):
-            prev_i = i - 1 if i else 0
-            phases.append((i, _block_sync(prev_i, i), [
-                a for t, v in lanes for a in (
-                    ("x", _pair(v, i)[0], t, False), ("x", _pair(v, i)[1], t, False),
-                    ("x", _pair(v, i)[0], t, True))]))
-        phases.append((n - 1, _block_sync(n - 2, n - 1), [
-            ("x", p, t, False) for t, v in lanes for p in _pair(v, n - 1)]))
-        phases.append((n - 1, T > 32, []))  # the block AND (or the warp's)
-        # the MC kernel's refill after the first check, its write-back
-        # (after a __syncwarp) after the second
-        phases.append((0, False, at_home(it == 0)))
+    for kind in KERNEL_PHASES[kernel]:
+        if kind == "it":
+            stages = ([("R", i) for i in range(n)]
+                      + [("L", i) for i in range(n - 1, -1, -1)])
+            prev = phases[-1][0]
+            for k, (side, i) in enumerate(stages):
+                # the sweep opens with a __syncwarp; the turn shares a stage
+                block = _block_sync(prev, i) if k else False
+                phases.append((i, block, sweep_stage(side, i)))
+                prev = i
+        elif kind == "check":
+            # decisions at stage 0's pairs, xor stages 0..n-2, the last xor
+            # and the compare at stage n-1's pairs
+            phases.append((0, False, [("x", p, t, True) for t, v in lanes
+                                      for p in _pair(v, 0)]))
+            for i in range(n - 1):
+                prev_i = i - 1 if i else 0
+                phases.append((i, _block_sync(prev_i, i), [
+                    a for t, v in lanes for a in (
+                        ("x", _pair(v, i)[0], t, False),
+                        ("x", _pair(v, i)[1], t, False),
+                        ("x", _pair(v, i)[0], t, True))]))
+            phases.append((n - 1, _block_sync(n - 2, n - 1), [
+                ("x", p, t, False) for t, v in lanes for p in _pair(v, n - 1)]))
+            phases.append((n - 1, T > 32, []))  # the block AND (or the warp's)
+        else:  # a refill writes the rows at home, the store (after a
+            # __syncwarp) reads them
+            phases.append((0, False, at_home(kind == "refill")))
     return phases
 
 
@@ -296,9 +313,11 @@ def test_index_rule_keeps_low_stages_in_a_warp(n):
     assert homes == list(range(N))
 
 
+@pytest.mark.parametrize("kernel", list(KERNEL_PHASES))
 @pytest.mark.parametrize("n", range(3, 11))
-def test_barrier_rule_leaves_no_cross_warp_hazard(n):
-    """Over the load, two iterations with a check after each: every pair of
+def test_barrier_rule_leaves_no_cross_warp_hazard(n, kernel):
+    """Over a kernel's load (the wave kernels' merge), two iterations and
+    its checks, refills and write-back (KERNEL_PHASES): every pair of
     accesses to one shared position by two different warps, one of them a
     write, has a block barrier between them; and the block barriers per
     iteration are 2(n-6) for n >= 7 (8 at N=1024, 2 at N=128) and none at
@@ -308,7 +327,7 @@ def test_barrier_rule_leaves_no_cross_warp_hazard(n):
     T = N // (2 * P)
     seen = {}  # position -> (warps that read, warps that wrote) since the
     # last block barrier
-    for stage, block, accesses in _schedule(n, P):
+    for stage, block, accesses in _schedule(n, P, kernel):
         if block:
             seen.clear()
         for row, p, t, write in accesses:

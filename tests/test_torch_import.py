@@ -168,22 +168,35 @@ def test_kernel_equals_plain_on_card(N, flavor, early_stop_every):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["bp_decode", "bp_wave_mc"])
+@pytest.mark.parametrize("kernel", ["bp_decode", "bp_wave_mc", "bp_wave",
+                                    "bp_wave_fused"])
 def test_live_row_kernels_hold_three_frames_per_sm_on_card(kernel):
     """On a card: at N=1024 each live-row kernel takes at most 74,752 bytes
-    of shared memory a frame, the occupancy query puts 3 frames on an SM,
-    and no register spills to local memory, in every flavor."""
+    of shared memory a frame and the occupancy query puts 3 frames on an
+    SM; at N=1024 and at N=128 (the instance for n at run time) no register
+    spills to local memory; in every flavor (the fused wave kernel with
+    check_every 0 and 4, two instances)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, bp_decode_shape
+    from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_shape
     from polardecoding_tpu_torch.ops.bp_wave_mc_kernel import bp_wave_mc_shape
 
-    for flavor in FLAVORS:
-        shape = (bp_decode_shape(1024, flavor, early_stop_every=4)
-                 if kernel == "bp_decode" else bp_wave_mc_shape(1024, flavor))
-        assert shape["smem_bytes"] <= 74752, shape
-        assert shape["frames_per_sm"] == 3, shape
-        assert shape["local_bytes"] == 0, shape
+    for flavor, N in [(f, N) for f in FLAVORS for N in (1024, 128)]:
+        if kernel == "bp_decode":
+            shapes = [bp_decode_shape(N, flavor, early_stop_every=4)]
+        elif kernel == "bp_wave_mc":
+            shapes = [bp_wave_mc_shape(N, flavor)]
+        elif kernel == "bp_wave":
+            shapes = [bp_wave_shape(N, flavor)]
+        else:
+            shapes = [bp_wave_shape(N, flavor, fused=True, check_every=ce)
+                      for ce in (0, 4)]
+        for shape in shapes:
+            assert shape["local_bytes"] == 0, (N, shape)
+            if N == 1024:
+                assert shape["smem_bytes"] <= 74752, shape
+                assert shape["frames_per_sm"] == 3, shape
 
 
 def _node_mask(name, N):
@@ -293,29 +306,73 @@ def _same_bits(a, b):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,check_every", [(128, 0), (128, 4), (1024, 0),
-                                           (1024, 1)])
-def test_wave_kernels_equal_plain_on_card(N, check_every):
+@pytest.mark.parametrize(
+    "N,check_every,iters,dead",
+    [pytest.param(N, ce, 8, False, id=f"{N}-{ce}")
+     for N, ce in ((128, 0), (128, 4), (1024, 0), (1024, 1))]
+    + [pytest.param(N, ce, i, True, id=f"{N}-{ce}-{i}-dead")
+       for N in CARD_NS for i in (0, 1, 8) for ce in (0, 1, 4, 8)])
+def test_wave_kernels_equal_plain_on_card(N, check_every, iters, dead):
     """On a card: the fused wave kernel's state, u_hat and done, and the
     unfused kernel's state, bit-equal to the plain versions, each launch
-    counted once."""
+    counted once.  With `dead`, in both min-sum flavors, on every odd slot
+    retired, at `iters` iterations, with NaN in L[0] and R[1..n] (the
+    planes an iteration writes before it reads them) when iters >= 1; at
+    N <= 64 a slot is one warp."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from polardecoding_tpu_torch.models.bp import bp_wave, bp_wave_fused
     from polardecoding_tpu_torch.ops import bp_wave_kernel
 
-    state, llr, retire = _wave_inputs(N, 64, N + check_every)
+    state, llr, retire = _wave_inputs(N, 64, N + check_every + 100 * dead
+                                      + iters)
+    flavors = ["minsum_lut"]
+    if dead:
+        flavors.append("minsum_lut_fast")
+        retire = torch.arange(64, device="cuda") % 2 == 1
+        if iters:
+            n = N.bit_length() - 1
+            state[[0] + list(range(n + 2, 2 * n + 2))] = float("nan")
+    for flavor in flavors:
+        launches = dict(bp_wave_kernel.LAUNCHES)
+        kw = dict(flavor=flavor, check_every=check_every)
+        got = bp_wave_fused(state.clone(), llr, retire, iters, **kw)
+        want = bp_wave_fused(state.clone(), llr, retire, iters, engine="plain",
+                             **kw)
+        got_w = bp_wave(state.clone(), iters, flavor)
+        want_w = bp_wave(state.clone(), iters, flavor, engine="plain")
+        torch.cuda.synchronize()
+        assert bp_wave_kernel.LAUNCHES == {k: v + 1 for k, v in launches.items()}
+        assert _same_bits(got[0], want[0]) and _same_bits(got_w, want_w), flavor
+        assert got[1].dtype == torch.int8 and (got[1] == want[1]).all()
+        assert got[2].dtype == torch.bool and (got[2] == want[2]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["bp_wave", "bp_wave_fused"])
+def test_wave_kernels_route_through_auto_on_card(kernel):
+    """On a card: one call of models/bp.bp_wave or bp_wave_fused with
+    engine="auto" on CUDA tensors launches its kernel once, and no other,
+    and equals the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.bp import bp_wave, bp_wave_fused
+    from polardecoding_tpu_torch.ops import bp_wave_kernel
+
+    state, llr, retire = _wave_inputs(1024, 64, 5)
     launches = dict(bp_wave_kernel.LAUNCHES)
-    got = bp_wave_fused(state.clone(), llr, retire, 8, check_every=check_every)
-    want = bp_wave_fused(state.clone(), llr, retire, 8, check_every=check_every,
-                         engine="plain")
-    got_w = bp_wave(state.clone(), 8)
-    want_w = bp_wave(state.clone(), 8, engine="plain")
+    if kernel == "bp_wave":
+        got = (bp_wave(state.clone(), 8, engine="auto"),)
+        want = (bp_wave(state.clone(), 8, engine="plain"),)
+    else:
+        got = bp_wave_fused(state.clone(), llr, retire, 8, engine="auto")
+        want = bp_wave_fused(state.clone(), llr, retire, 8, engine="plain")
     torch.cuda.synchronize()
-    assert bp_wave_kernel.LAUNCHES == {k: v + 1 for k, v in launches.items()}
-    assert _same_bits(got[0], want[0]) and _same_bits(got_w, want_w)
-    assert got[1].dtype == torch.int8 and (got[1] == want[1]).all()
-    assert got[2].dtype == torch.bool and (got[2] == want[2]).all()
+    assert bp_wave_kernel.LAUNCHES == {k: v + (k == kernel)
+                                       for k, v in launches.items()}
+    assert _same_bits(got[0], want[0])
+    for g, w in zip(got[1:], want[1:]):
+        assert g.dtype == w.dtype and (g == w).all()
 
 
 @pytest.mark.cuda
