@@ -10,7 +10,14 @@
 3. prints the live-row BP kernels' launch shapes (shared memory per frame,
    frames per SM, registers, spills) at N=1024 and 128, the wave kernels in
    every flavor, and checks 3 frames per SM, at most 74,752 bytes a frame
-   and no spills at N=1024; holds the BP decode kernel against its
+   and no spills at N=1024; holds the frame step's channel kernel
+   (csrc/frame_channel.cu) against its plain version on the card, bit for
+   bit on every element: N in {8, 64, 128, 1024}, B in {1, 33, 512,
+   16384}, at -2, 0, 2, 6 and 10 dB, frame indices 0.. and 2^31 - 3 ..
+   2^31 + 1, 2^32 - 2, -1 and 2^32 - 1 (the last two one key), two point
+   keys; and, with given words, every uniform that bits 9..31 give (2^23
+   words) with x = 0 and 1 at -2 and 6 dB, the MC channel (row 5) on the
+   same words; holds the BP decode kernel against its
    plain PyTorch version on the card:
    u_hat, written over a buffer filled with 90, bit-equal on every frame
    for N in {128, 1024}, and for BP_1024's decoder on N=8 and 64 codes at
@@ -19,8 +26,8 @@
    and every 4 iterations; SPA equal on every frame the plain version
    decodes correctly (exp/log1p rounding may steer a non-converged frame);
    the whole frame step's counters equal with the kernel and with the plain
-   decoder at the main path's batch, 8192; the channel on the card within
-   1e-5 of the channel on the CPU;
+   decoder at the main path's batch, 8192; the frame channel's kernel on the
+   card bit-equal to its plain version on the CPU on 64 frames;
 4. holds the SCL list-decode kernel against its plain version on the card:
    u_all, PM and tie counter bit-equal on every frame at B=512, LLRs from
    the port's channel at 1.0 and 2.0 dB, N in {128, 1024} with the presets'
@@ -40,8 +47,9 @@
    counters at 1.5 dB of SCL_1024_L8_FASTR1 (batch 16384),
    CASCL_1024_L8_FASTR1 and SCL_1024_L16_FASTR1 (4096);
 6. drives each main path with the launch counts at 0: four make_frame_step
-   steps, then run_point at 2.0 dB; the path's kernel must have been
-   launched and no other.  BP_1024 at batch 8192 to 200 error blocks, BLER
+   steps, then run_point at 2.0 dB; the path's decoder kernel and the frame
+   channel must have been launched once a step, and no other kernel.
+   BP_1024 at batch 8192 to 200 error blocks, BLER
    in [0.020, 0.043] (BASELINE.md: 0.02948 and 0.03292 for two seeds);
    SCL_1024_L8 and SCL_1024_L8_FASTR1 at batch 16384 to 100 error blocks,
    BLER in [0.0055, 0.0125] (BASELINE.md: 9.128e-3, a 5-seed mean, and
@@ -68,15 +76,20 @@
    BP_1024_FASTCHK with engine="mc", K=32, cadence 2 (bench.py's BP leg)
    and on BP_1024_ES with fused=False, each at batch 16384 to 200 error
    blocks with BLER in [0.020, 0.043]; then one make_frame_step step with
-   channel="mc" at batch 8192; each path's kernel must have been launched;
+   channel="mc" at batch 8192; each path's kernel must have been launched,
+   the frame channel once a step of the fused engine, once a step and at
+   init of the unfused one, never on the MC paths;
 9. times each kernel and its plain version (plain, kernel, kernel, plain) at
    its main path's shape, BP_1024 with B=8192 and 100 iterations,
    SCL_1024_L8 with B=16384 and SCL_1024_L8_FASTR1 on the same LLRs (the
    exact kernel beside it), one wave at B=16384 (K=8 fused and unfused,
-   K=32 MC) and the MC channel at B=8192, and holds the kernel's output
+   K=32 MC), the MC channel at B=8192 and the frame channel at B=16384 (both
+   timed behind a sleep kernel, utils/card.queued_ms, so that the host's
+   enqueue is hidden), and holds the kernel's output
    bit-equal to the plain version's there on every frame; times each whole
    frame step (with its peak device memory), and its encode and channel
-   stages apart, the fused ES wave step split into kernel and channel, and
+   (the frame channel's kernel) stages apart, the fused ES wave step split
+   into kernel and channel, and
    the retired frames per second of the fused and MC wave paths over one
    chunk of eight steps, with CUDA events after warmup;
 10. traces three steps of each of the five paths with torch.profiler: wall
@@ -108,11 +121,13 @@
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
    the card's rate for float32 adds, compares and selects, and the integer
    ones among them over 16.7e12, its INT32 rate; a probe's launches are
-   those of its driver's run).  A BP kernel's operations are counted on
+   those of its driver's run; the frame channel's those of the
+   SCL_1024_L8 path).  A BP kernel's operations are counted on
    the timed inputs, by a plain run on them (counted_chks, its line
    chk_counts): a CHK whose table difference is +0 there counts only the
-   operations it needs without the table.  Then {"ok": true, "device":
-   {...}} last.
+   operations it needs without the table; the frame channel's count the
+   branch of log1p and erf_inv each element of its timed inputs takes
+   (channel_branches).  Then {"ok": true, "device": {...}} last.
 
 Any failed phase raises and exits non-zero; without a CUDA device, or
 without the package beside this file, it exits non-zero before printing a
@@ -133,7 +148,7 @@ import time
 
 import torch
 
-from polardecoding_tpu_torch.utils.card import card_line, cuda_ms
+from polardecoding_tpu_torch.utils.card import card_line, cuda_ms, queued_ms
 
 # shapes of each phase; the main path's are those of the JAX package's
 # bench.py fixed-iteration BP leg
@@ -237,10 +252,17 @@ CHK_BP_OPS = {"minsum_lut": (CHK_OPS, 12), "minsum_lut_fast": (CHK_FAST_OPS, 8)}
 # delta and the add to the path metric
 PHI_BASE_OPS = 7
 PHI_PEN_OPS = 4
-# channel on the card vs on the CPU: log1p's last ulp may differ between
-# the two math libraries; an LLR of ~20 has an ulp of 2e-6, so 1e-5 is a
-# few ulp at the largest magnitudes seen at 2.0 dB
-CHANNEL_ATOL = 1e-5
+# the frame channel's compare: codes, batches, SNRs, frame indices (near
+# 2^31 and 2^32; -1 and 2^32 - 1 give the same key) and two point keys
+FC_NS = (8, 64, 128, 1024)
+SCL_BATCHES = (1, 33, 512, 16384)
+FC_SNRS = (-2.0, 0.0, 2.0, 6.0, 10.0)
+FC_FRAMES = ((1 << 31) - 3, (1 << 31) - 2, (1 << 31) - 1, 1 << 31,
+             (1 << 31) + 1, (1 << 32) - 2, -1, (1 << 32) - 1)
+FC_SEEDS = (0, 1024)
+# the exhaustive words: every uniform that bits 9..31 give, [8192, 1024]
+WORDS_BATCH = 8192
+WORDS_SNRS = (-2.0, 6.0)
 # An SM has 64 INT32 lanes beside its 128 float32 ones: integer operations
 # issue at most 132 x 64 x 1.98e9 per second, and every operation, integer or
 # float, shares the issue rate OPS_PER_S
@@ -260,6 +282,26 @@ THREEFRY_INT_OPS = 1 + 20 * 3 - 2 + 9
 # product with x (1) and the LLR's sign select, fmaf and product (4)
 LLR_INT_OPS = 1 + 3
 LLR_OPS = 5 + 3 + 23 + 1 + 5 + 17 + 1 + 4
+# the frame step's channel (csrc/frame_channel.cu): a two-word threefry
+# block, its counter's first word 0 (so its first injection is the key):
+# the key added to the second word, 20 mixes of an add, a rotate and a xor,
+# and 10 key injections of one add (a key plus its round number is one per
+# frame); per frame one block folds the index in, per element one more
+# makes the word, whose two halves are xored
+THREEFRY2_INT_OPS = 1 + 20 * 3 + 10
+# per element besides: integer, the xor and the uniform's shift and or;
+# float, the uniform (a subtraction, the product, the add and the clamp),
+# t = u * -u, log1p's branch compare, erf_inv's branch compare, its
+# argument (one subtraction; the sqrt branch one more), Giles' 8 fmaf, the
+# product with u, and the LLR (1 - 2x, the fma, y + y, the divide)
+FRAME_INT_OPS = 1 + 2
+FRAME_OPS = 4 + 1 + 1 + 1 + 1 + 8 + 1 + 5
+# log1p's branch for |t| < sqrt(2) - 1: 6 + 6 fmaf, t^2, t^3, P/Q, the
+# product, the fma and the add; else t + 1 and XLA's log (integer: its
+# exponent's and mantissa's shift, subtraction and logic op; float: the
+# exponent's conversion and 22)
+LOG1P_SMALL_OPS = 12 + 6
+LOG1P_LOG_OPS, LOG1P_LOG_INT_OPS = 1 + 23, 3
 # the probes (TPU kernels 9-12): the floors at the SCL main path's shape
 # (N=1024, L=8, B=SCL_BATCH), row 9 with the leaf table and three outputs,
 # rows 10 and 11 with two; (row, variant, switches)
@@ -323,6 +365,7 @@ def kernels():
     in a dict-valued attribute or None)}."""
     from polardecoding_tpu_torch.ops import (bp_kernel, bp_wave_kernel,
                                              bp_wave_mc_kernel, channel_kernel,
+                                             frame_channel_kernel,
                                              microbench_kernel, probe_kernel,
                                              scl_kernel)
 
@@ -333,6 +376,7 @@ def kernels():
             "bp_wave": (bp_wave_kernel, "LAUNCHES", "bp_wave"),
             "bp_wave_mc": (bp_wave_mc_kernel, "LAUNCHES", None),
             "mc_channel": (channel_kernel, "LAUNCHES", None),
+            "frame_channel": (frame_channel_kernel, "LAUNCHES", None),
             # one floor kernel serves the three floor probes; each probe
             # path is driven alone, so the one count reads each
             "probe_floor": (probe_kernel, "LAUNCHES", None),
@@ -400,11 +444,13 @@ def phase_shapes():
 
 def llr_frames(name, batch, snr_db, device, seed=7, N=None):
     """Channel LLRs of frames 0..batch-1 of a preset at snr_db from the
-    port's own pipeline (CRC included), with the code's frozen mask and the
-    true u; with N, of the preset's code cut to length N at rate 1/2."""
+    port's own pipeline (CRC included; the frame channel's kernel on the
+    card, its plain version on the CPU), with the code's frozen mask and
+    the true u; with N, of the preset's code cut to length N at rate
+    1/2."""
     from polardecoding_tpu_torch.configs import preset
-    from polardecoding_tpu_torch.ops.channel import (awgn_llr, fold_in,
-                                                     frame_keys, prng_key,
+    from polardecoding_tpu_torch.ops.channel import (fold_in, frame_llr,
+                                                     prng_key,
                                                      sigma_from_ebn0_db)
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu, scatter_info
     from polardecoding_tpu_torch.parallel.harness import (_crc_encode,
@@ -418,9 +464,88 @@ def llr_frames(name, batch, snr_db, device, seed=7, N=None):
     fidx = torch.arange(batch, device=device)
     w = _crc_encode(code, payload_from_index(fidx, tables.pn, code.K))
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
-    llr = awgn_llr(encode_info_mxu(w, tables.g_rows), frame_keys(key, fidx),
-                   sigma_from_ebn0_db(snr_db))
+    llr = frame_llr(encode_info_mxu(w, tables.g_rows), key, fidx,
+                    sigma_from_ebn0_db(snr_db))
     return llr, tables.frozen, scatter_info(w, tables.info_set, code.N)
+
+
+def exhaustive_words(device):
+    """[WORDS_BATCH, 1024] 32-bit words (int64) whose bits 9..31 run over
+    all 2^23 values, bits 0..8 zero: every uniform of either channel."""
+    return (torch.arange(1 << 23, dtype=torch.int64, device=device) << 9
+            ).reshape(WORDS_BATCH, -1)
+
+
+def phase_frame_channel_compare():
+    """The frame channel's kernel against its plain version on the card,
+    bit for bit on every element: threefry words for N in FC_NS, B in
+    SCL_BATCHES, at FC_SNRS, with frame indices 0.. and FC_FRAMES, under two
+    point keys (frames -1 and 2^32 - 1 given one codeword must give one
+    LLR row); then the exhaustive words (bits mode) with x = 0 and 1 at
+    WORDS_SNRS, and the MC channel (row 5) on the same words.  Returns
+    {kernel: largest |kernel - plain|} (0 when bit-equal)."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.channel import (awgn_llr_from_words,
+                                                     fold_in, frame_llr,
+                                                     prng_key,
+                                                     sigma_from_ebn0_db)
+    from polardecoding_tpu_torch.ops.channel_kernel import mc_channel
+    from polardecoding_tpu_torch.ops.frame_channel_kernel import frame_llr_cuda
+    from polardecoding_tpu_torch.parallel.harness import _mc_mode_tables
+
+    worst = {"frame_channel": 0.0, "mc_channel": 0.0}
+
+    def record(kernel, got, want, **rec):
+        equal, err = frames_equal([(got, want, 0)], got.shape[0])
+        rec = dict(rec, kernel=kernel, frames=got.shape[0], frames_equal=equal,
+                   max_abs_err=err)
+        emit({"frame_channel_compare": rec})
+        check(equal == got.shape[0] and err == 0, f"kernel != plain: {rec}")
+        worst[kernel] = max(worst[kernel], err)
+
+    gen = torch.Generator(device=DEVICE).manual_seed(10)
+    edge = torch.tensor(FC_FRAMES, device=DEVICE)
+    for N in FC_NS:
+        for B in SCL_BATCHES:
+            x = torch.randint(0, 2, (B, N), generator=gen, device=DEVICE
+                              ).to(torch.float32)
+            fidx = torch.arange(B, device=DEVICE)
+            fidx[-len(edge):] = edge[-B:]  # B = 1: 2^32 - 1 alone
+            if B > 1:  # frames -1 and 2^32 - 1 on one codeword
+                x[-2] = x[-1]
+            for seed in FC_SEEDS:
+                key = fold_in(prng_key(seed, DEVICE), 200)
+                for snr in FC_SNRS:
+                    sigma = sigma_from_ebn0_db(snr)
+                    got = frame_llr(x, key, fidx, sigma)
+                    want = frame_llr(x, key, fidx, sigma, engine="plain")
+                    torch.cuda.synchronize()
+                    check(bool(torch.isfinite(want).all()),
+                          "non-finite frame channel LLRs")
+                    if B > 1:
+                        check(bool(_same(got[-2], got[-1]).all()),
+                              "frames -1 and 2^32 - 1 differ")
+                    record("frame_channel", got, want, N=N, B=B, seed=seed,
+                           snr_db=snr)
+    words = exhaustive_words(DEVICE)
+    for snr in WORDS_SNRS:
+        sigma = sigma_from_ebn0_db(snr)
+        for bit in (0.0, 1.0):
+            x = torch.full(words.shape, bit, device=DEVICE)
+            got = frame_llr_cuda(x, None, None, sigma, bits=words)
+            want = awgn_llr_from_words(x, words, sigma)
+            torch.cuda.synchronize()
+            record("frame_channel", got, want, words="all 2^23 uniforms",
+                   x=bit, snr_db=snr)
+        p = preset(MAIN_PRESET)
+        _, xtab = _mc_mode_tables(p.code, DEVICE)
+        m = (torch.arange(words.shape[0], device=DEVICE) * (p.code.K % 63)) % 63
+        args = (m, xtab, sigma, (1, 2, 3, 4), words)
+        got = mc_channel(*args, gen_bits=False)
+        want = mc_channel(*args, gen_bits=False, engine="plain")
+        torch.cuda.synchronize()
+        record("mc_channel", got, want, words="all 2^23 uniforms", snr_db=snr)
+    return worst
 
 
 def phase_compare():
@@ -480,21 +605,25 @@ def phase_compare():
     check(counters["auto"] == counters["plain"],
           f"frame step counters differ between kernel and plain: {counters}")
 
+    # the frame channel's kernel on the card against its plain version on
+    # the CPU, bit for bit
     llr_gpu, _, _ = llr_frames(MAIN_PRESET, 64, MAIN_SNR, DEVICE)
     llr_cpu, _, _ = llr_frames(MAIN_PRESET, 64, MAIN_SNR, "cpu")
-    dev = float((llr_gpu.cpu() - llr_cpu).abs().max())
-    emit({"channel_gpu_vs_cpu": {"max_abs_diff": dev,
-                                 "equal_share": float((llr_gpu.cpu() == llr_cpu)
-                                                      .float().mean())}})
-    check(dev <= CHANNEL_ATOL, f"channel on the card differs from the CPU by {dev}")
+    same = _same(llr_gpu.cpu(), llr_cpu)
+    emit({"channel_gpu_vs_cpu": {
+        "frames": 64, "max_abs_diff": float((llr_gpu.cpu() - llr_cpu).abs().max()),
+        "equal_share": float(same.float().mean())}})
+    check(bool(same.all()), "the frame channel on the card differs from the "
+          "plain channel on the CPU")
     return worst
 
 
 def phase_main(name, batch, error_blocks, bler_range, kernel):
     """Drive one main path with every launch count at 0 just before: four
-    make_frame_step steps, then run_point at MAIN_SNR; returns the count of
-    launches of the path's kernel read just after, and checks that no other
-    kernel was launched."""
+    make_frame_step steps, then run_point at MAIN_SNR; returns the counts of
+    launches of the path's kernel and of the frame channel read just after,
+    and checks that each ran once a step and no other kernel was
+    launched."""
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
                                                      sigma_from_ebn0_db)
@@ -512,12 +641,14 @@ def phase_main(name, batch, error_blocks, bler_range, kernel):
     res = run_point(p, MAIN_SNR, batch=batch, device=DEVICE,
                     error_blocks=error_blocks)
     torch.cuda.synchronize()
-    count = launches(kernel)
-    others = {k: launches(k) for k in kernels() if k != kernel and launches(k)}
+    count, channel = launches(kernel), launches("frame_channel")
+    others = {k: launches(k) for k in kernels()
+              if k not in (kernel, "frame_channel") and launches(k)}
     emit({"main_path": {"preset": p.name, "batch": batch,
                         "steps": steps, "point": res.to_json(p.code.num_info),
                         "seconds": time.perf_counter() - t0,
                         "kernel": kernel, "launches": count,
+                        "frame_channel_launches": channel,
                         "other_launches": others}})
     for eb, ebl, ties in steps:
         check(0 <= ebl <= batch and eb >= ebl and 0 <= ties <= batch
@@ -533,8 +664,11 @@ def phase_main(name, batch, error_blocks, bler_range, kernel):
     check(bler_range[0] <= res.bler <= bler_range[1],
           f"{name}: BLER {res.bler} at {MAIN_SNR} dB outside {bler_range}")
     check(count == MAIN_STEPS + k, f"kernel launched {count} times")
+    check(channel == MAIN_STEPS + k,
+          f"{name}: frame channel launched {channel} times in "
+          f"{MAIN_STEPS + k} steps")
     check(not others, f"{name}: other kernels launched: {others}")
-    return count
+    return count, channel
 
 
 def node_masks():
@@ -760,8 +894,8 @@ def phase_timing(card, name, batch, kernel, plain, reps, compare, also=None,
     memory) and its encode and channel stages apart; returns (kernel ms,
     plain ms, compare's largest |kernel - plain|)."""
     from polardecoding_tpu_torch.configs import preset
-    from polardecoding_tpu_torch.ops.channel import (awgn_llr, fold_in,
-                                                     frame_keys, prng_key,
+    from polardecoding_tpu_torch.ops.channel import (fold_in, frame_llr,
+                                                     prng_key,
                                                      sigma_from_ebn0_db)
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu
     from polardecoding_tpu_torch.parallel.harness import (code_tables,
@@ -791,7 +925,8 @@ def phase_timing(card, name, batch, kernel, plain, reps, compare, also=None,
     torch.cuda.reset_peak_memory_stats()
     step_ms, _ = cuda_ms(lambda: step(key, next(n) * batch, sigma), STEP_REPS)
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
-    # the step's stages apart: payload + encode, then keys + channel
+    # the step's stages apart: payload + encode, then the channel (the
+    # frame channel's kernel, host time included)
     tables = code_tables(p.code, DEVICE)
     fidx = torch.arange(batch, device=DEVICE)
 
@@ -800,8 +935,7 @@ def phase_timing(card, name, batch, kernel, plain, reps, compare, also=None,
                                tables.g_rows)
 
     encode_ms, x = cuda_ms(encode, STEP_REPS)
-    channel_ms, _ = cuda_ms(lambda: awgn_llr(x, frame_keys(key, fidx), sigma),
-                            STEP_REPS)
+    channel_ms, _ = cuda_ms(lambda: frame_llr(x, key, fidx, sigma), STEP_REPS)
     k, pl = statistics.mean(kernel_ms), statistics.mean(plain_ms)
     emit({"timing": dict(
         {"card": card, "preset": name, "batch": batch}, **info, **also_ms,
@@ -1115,31 +1249,76 @@ def phase_wave_compare():
     return worst
 
 
+@contextlib.contextmanager
+def counted_steppers():
+    """Within the block, harness.make_wave_step and make_wave_step_mc hand
+    out steppers whose init, step and drain calls are counted.  Yields
+    {"engine": "fused", "unfused" or "mc", "init", "step", "drain"}, the
+    counts of the last stepper made."""
+    from polardecoding_tpu_torch.parallel import harness
+
+    made = {"engine": None, "init": 0, "step": 0, "drain": 0}
+    makers = {name: getattr(harness, name)
+              for name in ("make_wave_step", "make_wave_step_mc")}
+
+    def counted(label, fn):
+        def call(*args, **kw):
+            made[label] += 1
+            return fn(*args, **kw)
+        return call
+
+    def wrap(name):
+        def make(*args, **kw):
+            made["engine"] = ("mc" if name == "make_wave_step_mc" else
+                              "fused" if kw.get("fused", True) else "unfused")
+            return tuple(counted(label, fn) for label, fn in
+                         zip(("init", "step", "drain"), makers[name](*args, **kw)))
+        return make
+
+    for name in makers:
+        setattr(harness, name, wrap(name))
+    try:
+        yield made
+    finally:
+        for name, fn in makers.items():
+            setattr(harness, name, fn)
+
+
 def phase_wave_main(label, run, kernel):
     """Drive one wave path with every launch count at 0 just before: run()
     returns its PointResult, whose BLER must lie in BLER_RANGE; returns the
-    count of the path's kernel's launches read just after."""
+    counts of the path's kernel's launches and of the frame channel's read
+    just after.  The frame channel draws a step's fresh LLRs: once a step
+    on the fused engine, once a step and at init on the unfused one, never
+    on the MC engine."""
     reset_counts()
     t0 = time.perf_counter()
-    res = run()
+    with counted_steppers() as made:
+        res = run()
     torch.cuda.synchronize()
-    counts = {kernel: launches(kernel)}
+    counts = {kernel: launches(kernel), "frame_channel": launches("frame_channel")}
+    want = {"fused": made["step"], "unfused": made["step"] + made["init"],
+            "mc": 0}[made["engine"]]
     from polardecoding_tpu_torch.configs import preset
 
     emit({"main_path": {"path": label, "batch": WAVE_BATCH,
                         "point": res.to_json(preset(res.preset).code.num_info),
                         "seconds": time.perf_counter() - t0,
-                        "launches": counts}})
+                        "launches": counts, "stepper": made}})
     check(res.errblock >= WAVE_ERROR_BLOCKS, f"{label} stopped early: {res}")
     check(BLER_RANGE[0] <= res.bler <= BLER_RANGE[1],
           f"{label}: BLER {res.bler} at {MAIN_SNR} dB outside {BLER_RANGE}")
     check(counts[kernel] > 0, f"{label}: launches {counts}")
-    return counts[kernel]
+    check(counts["frame_channel"] == want,
+          f"{label}: frame channel launched {counts['frame_channel']} times, "
+          f"want {want} ({made})")
+    return counts[kernel], counts["frame_channel"]
 
 
 def phase_mc_channel_main():
     """One make_frame_step step with channel="mc" at MC_CHANNEL_BATCH, the
-    launch counts at 0 just before; returns the MC channel's launches."""
+    launch counts at 0 just before; returns the MC channel's launches (one;
+    the frame channel's none)."""
     reset_counts()
     counters = frame_step_runner(MAIN_PRESET, MC_CHANNEL_BATCH, channel="mc")(0)
     torch.cuda.synchronize()
@@ -1147,23 +1326,26 @@ def phase_mc_channel_main():
     emit({"main_path": {"path": f"{MAIN_PRESET} make_frame_step channel=mc",
                         "batch": MC_CHANNEL_BATCH, "steps": [counters],
                         "launches": {"mc_channel": count,
-                                     "bp_decode": launches("bp_decode")}}})
+                                     "bp_decode": launches("bp_decode"),
+                                     "frame_channel": launches("frame_channel")}}})
     eb, ebl, ties = counters
     check(0 < ebl < MC_CHANNEL_BATCH and eb >= ebl and ties == 0,
           f"implausible MC-channel step counters {counters}")
     check(count == 1, f"mc_channel launched {count} times")
+    check(launches("frame_channel") == 0, "the MC step launched the frame channel")
     return count
 
 
-def hold_and_time(card, name, B, run, axes, flavor=None, **info):
+def hold_and_time(card, name, B, run, axes, flavor=None, timer=cuda_ms,
+                  **info):
     """run(engine, fresh) computes one kernel's function at its bench shape,
     with the kernel (engine="auto") or the plain version ("plain"), on
     copies of the inputs the kernel updates in place when fresh.  Holds the
     two bit-equal on every frame (axes: each output's frame axis), times
     them in turns (plain, kernel, kernel, plain; the plain version once per
-    turn) and emits a wave_timing line; returns (kernel ms, plain ms,
-    largest |kernel - plain|, the plain BP's CHKs of `flavor` counted by
-    counted_chks, or None without)."""
+    turn, the kernel by `timer`) and emits a wave_timing line; returns
+    (kernel ms, plain ms, largest |kernel - plain|, the plain BP's CHKs of
+    `flavor` counted by counted_chks, or None without)."""
     got = run("auto", True)
     with (counted_chks(flavor) if flavor else contextlib.nullcontext()) as chks:
         want = run("plain", False)
@@ -1174,7 +1356,8 @@ def hold_and_time(card, name, B, run, axes, flavor=None, **info):
     k, pl = [], []
     for engine, acc, reps in (("plain", pl, 1), ("auto", k, WAVE_KERNEL_REPS),
                               ("auto", k, WAVE_KERNEL_REPS), ("plain", pl, 1)):
-        acc.append(cuda_ms(lambda: run(engine, False), reps)[0])
+        time_it = timer if engine == "auto" else cuda_ms
+        acc.append(time_it(lambda: run(engine, False), reps)[0])
     emit({"wave_timing": dict(card=card, kernel=name, batch=B, kernel_ms=k,
                               plain_ms=pl, frames_equal=equal, **info)})
     return statistics.mean(k), statistics.mean(pl), err, chks
@@ -1187,7 +1370,7 @@ def phase_k8_wave_timing(card):
     Returns ({kernel: hold_and_time's result}, {kernel: wave_work of the
     very inputs timed})."""
     from polardecoding_tpu_torch.models.bp import bp_wave, bp_wave_fused
-    from polardecoding_tpu_torch.ops.channel import awgn_llr, frame_keys
+    from polardecoding_tpu_torch.ops.channel import frame_llr
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu
     from polardecoding_tpu_torch.parallel.harness import (code_tables,
                                                           make_wave_step,
@@ -1205,7 +1388,7 @@ def phase_k8_wave_timing(card):
     def channel():
         x = encode_info_mxu(payload_from_index(fidx, tables.pn, p.code.K),
                             tables.g_rows)
-        return awgn_llr(x, frame_keys(key, fidx), sigma)
+        return frame_llr(x, key, fidx, sigma)
 
     channel_ms, llr = cuda_ms(channel, STEP_REPS)
     out["bp_wave_fused"] = hold_and_time(
@@ -1287,8 +1470,53 @@ def phase_wave_timing(card):
     out["mc_channel"] = hold_and_time(
         card, "mc_channel", Bc,
         lambda e, f: (mc_channel(m, xtab, sigma, (k0, k1, k0 ^ k1, 0), engine=e),),
-        (0,))
+        (0,), timer=queued_ms)
     return out, k8_work
+
+
+def phase_frame_channel_timing(card):
+    """The frame channel's kernel and its plain version at the SCL paths'
+    shape (SCL_PRESET's codewords of frames 0..SCL_BATCH-1 under its key at
+    MAIN_SNR) in turns (plain, kernel, kernel, plain; the kernel by
+    queued_ms, the host's enqueue hidden), held bit-equal there; the
+    branches of log1p and erf_inv that these inputs take (channel_branches)
+    for the bound.  Returns (kernel ms, plain ms, largest |kernel - plain|,
+    frame_channel_work)."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.channel import (fold_in, frame_keys,
+                                                     frame_llr, prng_key,
+                                                     random_bits,
+                                                     sigma_from_ebn0_db)
+    from polardecoding_tpu_torch.ops.encode import encode_info_mxu
+    from polardecoding_tpu_torch.parallel.harness import (_crc_encode,
+                                                          code_tables,
+                                                          payload_from_index)
+
+    p = preset(SCL_PRESET)
+    N = p.code.N
+    tables = code_tables(p.code, DEVICE)
+    fidx = torch.arange(SCL_BATCH, device=DEVICE)
+    x = encode_info_mxu(_crc_encode(p.code, payload_from_index(
+        fidx, tables.pn, p.code.K)), tables.g_rows)
+    key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
+    sigma = sigma_from_ebn0_db(MAIN_SNR)
+    outs, k, pl = {}, [], []
+    for engine, acc, timer, reps in (
+            ("plain", pl, cuda_ms, 1), ("auto", k, queued_ms, WAVE_KERNEL_REPS),
+            ("auto", k, queued_ms, WAVE_KERNEL_REPS), ("plain", pl, cuda_ms, 1)):
+        ms, out = timer(lambda: frame_llr(x, key, fidx, sigma, engine), reps)
+        acc.append(ms)
+        outs.setdefault(engine, out)
+    equal, err = frames_equal([(outs["auto"], outs["plain"], 0)], SCL_BATCH)
+    check(equal == SCL_BATCH and err == 0,
+          f"frame channel != plain at B={SCL_BATCH}: {equal}")
+    small, ge5 = channel_branches(random_bits(frame_keys(key, fidx), N))
+    emit({"frame_channel_timing": dict(
+        card=card, preset=SCL_PRESET, batch=SCL_BATCH, kernel_ms=k, plain_ms=pl,
+        frames_equal=equal, log1p_rational=small, erf_inv_sqrt=ge5,
+        elements=SCL_BATCH * N)})
+    return (statistics.mean(k), statistics.mean(pl), err,
+            frame_channel_work(SCL_BATCH, N, small, ge5))
 
 
 def probe_inputs(B):
@@ -1502,7 +1730,8 @@ def phase_bench():
     t0 = time.perf_counter()
     rec = bench.main([])
     counts = {k: launches(k) for k in ("bp_decode", "scl_decode",
-                                       "scl_decode_r1", "bp_wave_mc")}
+                                       "scl_decode_r1", "bp_wave_mc",
+                                       "frame_channel")}
     emit({"bench_run": {"seconds": time.perf_counter() - t0,
                         "launches": counts}})
     check(set(rec) == BENCH_KEYS, f"bench keys {sorted(rec)}")
@@ -1612,6 +1841,37 @@ def noise_work(elements):
     return int_ops + elements * LLR_OPS, int_ops
 
 
+def channel_branches(words):
+    """(elements whose log1p takes the rational branch, elements whose
+    erf_inv takes the sqrt branch) of the frame channel on the noise words
+    [B, N], counted by a plain run of ops/noise's uniform and log1p on
+    them."""
+    from polardecoding_tpu_torch.ops.noise import (_LOG1P_SMALL, log1p_f32,
+                                                   uniform_jax)
+
+    u = uniform_jax(words)
+    t = u * -u
+    ge5 = ~(log1p_f32(t) > -5.0)
+    return int((t.abs() < _LOG1P_SMALL).sum()), int(ge5.sum())
+
+
+def frame_channel_work(B, N, small, ge5):
+    """Bytes, operations and integer operations of the frame channel on B
+    frames of N: x in, the LLRs out, the frame indices and the key in; a
+    fold-in per frame; per element a two-word threefry block, the uniform,
+    the LLR and the branch of log1p and of erf_inv it takes (`small`
+    elements the rational log1p, `ge5` the sqrt branch; channel_branches
+    counts them on the timed inputs)."""
+    elements = B * N
+    logs = elements - small
+    int_ops = (B * THREEFRY2_INT_OPS
+               + elements * (THREEFRY2_INT_OPS + FRAME_INT_OPS)
+               + logs * LOG1P_LOG_INT_OPS)
+    ops = (int_ops + elements * FRAME_OPS + small * LOG1P_SMALL_OPS
+           + logs * LOG1P_LOG_OPS + ge5)
+    return elements * 8 + B * 8 + 16, ops, int_ops
+
+
 def mc_wave_work(B, N, refills, chks):
     """Bytes, operations and integer operations of one MC wave: state and
     meta [4, B, N] read and written once, the two tables read, stats
@@ -1693,30 +1953,34 @@ def main() -> int:
     print(card, flush=True)
     phase_build(_build)
     phase_shapes()
+    channel_worst = phase_frame_channel_compare()
     bp_worst = phase_compare()
     scl_worst = phase_scl_compare()
     r1_worst = phase_scl_r1_compare()
-    counts = {
-        "bp_decode": phase_main(MAIN_PRESET, MAIN_BATCH, MAIN_ERROR_BLOCKS,
-                                BLER_RANGE, "bp_decode"),
-        "scl_decode": phase_main(SCL_PRESET, SCL_BATCH, SCL_ERROR_BLOCKS,
-                                 SCL_BLER_RANGE, "scl_decode")}
-    r1_counts = {name: phase_main(name, SCL_BATCH, blocks, bler, "scl_decode_r1")
+    # each frame-step path's decoder and frame channel launches; the
+    # kernels line takes the frame channel's from the SCL_1024_L8 path
+    counts = {}
+    counts["bp_decode"], _ = phase_main(MAIN_PRESET, MAIN_BATCH,
+                                        MAIN_ERROR_BLOCKS, BLER_RANGE,
+                                        "bp_decode")
+    counts["scl_decode"], counts["frame_channel"] = phase_main(
+        SCL_PRESET, SCL_BATCH, SCL_ERROR_BLOCKS, SCL_BLER_RANGE, "scl_decode")
+    r1_counts = {name: phase_main(name, SCL_BATCH, blocks, bler, "scl_decode_r1")[0]
                  for name, blocks, bler in R1_MAIN_PATHS}
     counts["scl_decode_r1"] = r1_counts[R1_PRESET]
     wave_worst = phase_wave_compare()
-    counts["bp_wave_fused"] = phase_wave_main(
+    counts["bp_wave_fused"], _ = phase_wave_main(
         f"{WAVE_PRESET} run_point (fused wave engine, K={WAVE_ITERS})",
         lambda: run_point(preset(WAVE_PRESET), MAIN_SNR, batch=WAVE_BATCH,
                           device=DEVICE, error_blocks=WAVE_ERROR_BLOCKS),
         "bp_wave_fused")
-    counts["bp_wave_mc"] = phase_wave_main(
+    counts["bp_wave_mc"], _ = phase_wave_main(
         f"{MC_PRESET} run_point_waves engine=mc K={MC_ITERS} cadence={MC_CADENCE}",
         lambda: run_point_waves(preset(MC_PRESET), MAIN_SNR, batch=WAVE_BATCH,
                                 wave_iters=MC_ITERS, device=DEVICE,
                                 error_blocks=WAVE_ERROR_BLOCKS, engine="mc",
                                 cadence=MC_CADENCE), "bp_wave_mc")
-    counts["bp_wave"] = phase_wave_main(
+    counts["bp_wave"], _ = phase_wave_main(
         f"{WAVE_PRESET} run_point_waves fused=False K={WAVE_ITERS}",
         lambda: run_point_waves(preset(WAVE_PRESET), MAIN_SNR, batch=WAVE_BATCH,
                                 device=DEVICE, error_blocks=WAVE_ERROR_BLOCKS,
@@ -1758,6 +2022,11 @@ def main() -> int:
     for name, (ms, plain_ms, worst, c) in wave_times.items():
         times[name] = (ms, plain_ms, max(wave_worst[name], worst))
         chks[name] = c
+    times["mc_channel"] = times["mc_channel"][:2] + (
+        max(times["mc_channel"][2], channel_worst["mc_channel"]),)
+    ms, plain_ms, worst, channel_work = phase_frame_channel_timing(card)
+    times["frame_channel"] = (ms, plain_ms,
+                              max(worst, channel_worst["frame_channel"]))
     phase_profile(card, MAIN_PRESET, MAIN_BATCH,
                   frame_step_runner(MAIN_PRESET, MAIN_BATCH))
     phase_profile(card, SCL_PRESET, SCL_BATCH,
@@ -1794,7 +2063,8 @@ def main() -> int:
         "scl_decode_r1": scl_work(SCL_BATCH, N, L, frozen, r1=r1),
         **k8_work,
         "bp_wave_mc": mc_wave_work(WAVE_BATCH, N, refills, chks["bp_wave_mc"]),
-        "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N), **probe_bounds}
+        "mc_channel": mc_channel_work(MC_CHANNEL_BATCH, N),
+        "frame_channel": channel_work, **probe_bounds}
     emit({"chk_counts": {k: dict(c, zero_share=c["zero"] / c["chks"])
                          for k, c in chks.items() if c}})
     lines = []

@@ -6,51 +6,80 @@
 // polardecoding_tpu_torch/ops/channel_kernel.mc_channel_plain computes, bit
 // for bit.
 //
-// Design: one thread per element (b, lane): the codeword bit is a row read
-// x_table[m[b], lane] (the TPU kernel's one-hot matmul), the noise word is
-// threefry2x32 under the point key at counter (step, b * N + lane), or
-// bits[b, lane] when given, and the LLR is noise.cuh's.  What bounds it on
-// this card: the arithmetic, about 200 integer and float operations per
-// element (threefry's 20 rounds, XLA's log and Giles' polynomial), against 4
-// bytes written; the table (at most 512 KB) stays in L2.
+// Per element (b, lane): the codeword bit is a row read x_table[m[b], lane]
+// (the TPU kernel's one-hot matmul), the noise word is threefry2x32 under
+// the point key at counter (step, b * N + lane), or bits[b, lane] when
+// given, and the LLR is noise.cuh's.  What bounds it on this card: integer
+// issue, threefry's 20 rounds of an add, a funnel-shift rotate and a xor
+// (about 70 integer operations an element) against 4 bytes written; the
+// table (at most 512 KB) stays in L2.  The design keeps every other integer
+// operation out of the element: a block takes a tile of consecutive
+// elements (noise.cuh's Tile), whose frames and lanes are shifts of the
+// block and thread index, not a 64-bit division by a run-time N; the first
+// key injection (step + k0) and the key schedule are the same for every
+// element, uniform values the compiler keeps out of the per-thread work;
+// N = 1024 has an instance compiled with constant n, where a tile lies in
+// one frame and every address is a register plus an immediate.  One
+// element a thread: 2, 4 or 8 a thread took longer on the H100
+// (scripts/torch_channel_parts.py; PERF.md §6).
 
 #include "noise.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(256)
+constexpr int kMainN = 10;  // log2 of the main path's N
+constexpr int kElemsLog = 0;  // one element a thread
+using Tile = mc::Tile<kElemsLog>;
+
+// NC > 0 compiles the kernel for n = NC; NC = 0 takes n at run time.
+template <int NC>
+__global__ void __launch_bounds__(mc::kThreads)
 mc_channel_kernel(const int* __restrict__ m, const float* __restrict__ x_table,
                   const uint32_t* __restrict__ bits, float* __restrict__ out,
                   float sigma, uint32_t k0, uint32_t k1, uint32_t step, int B,
-                  int N) {
-  const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (idx >= static_cast<size_t>(B) * N) return;
-  const size_t b = idx / N;
-  const int lane = static_cast<int>(idx - b * N);
-  const float x = x_table[static_cast<size_t>(m[b]) * N + lane];
-  const uint32_t w = bits ? bits[idx]
-                          : mc::threefry_x0(k0, k1, step,
-                                            static_cast<uint32_t>(idx));
-  out[idx] = mc::llr(w, x, 1.0f / sigma);
+                  int n_arg) {
+  const int n = NC > 0 ? NC : n_arg;
+  const Tile tile(n, B);
+  const float inv_s = __fdiv_rn(1.0f, sigma);
+#pragma unroll
+  for (int k = 0; k < Tile::kElems; ++k) {
+    const int i = k * mc::kThreads + static_cast<int>(threadIdx.x);
+    const int f = tile.frame(i);
+    if (f >= tile.frames) break;
+    const long long b = tile.b0 + f;
+    const int lane = tile.lane(i);
+    const size_t e = (static_cast<size_t>(b) << n) + lane;
+    const float x = x_table[(static_cast<size_t>(m[b]) << n) + lane];
+    // the counter's low word is (b * N + lane) mod 2^32
+    const uint32_t w = bits ? bits[e]
+                            : mc::threefry_x0(k0, k1, step,
+                                              static_cast<uint32_t>(e));
+    out[e] = mc::llr(w, x, inv_s);
+  }
+}
+
+using Kernel = void (*)(const int*, const float*, const uint32_t*, float*,
+                        float, uint32_t, uint32_t, uint32_t, int, int);
+
+Kernel kernel_for(int n) {
+  return n == kMainN ? mc_channel_kernel<kMainN> : mc_channel_kernel<0>;
 }
 
 }  // namespace
 
-// m: [B] int32 offsets in 0..127, x_table: [128, N] f32, bits: [B, N] 32-bit
-// words or null (counter noise under (k0, k1) at (step, b * N + lane)),
-// out: [B, N] f32.  Launches on `stream` without synchronising; returns the
-// cudaError_t code.
+// m: [B] int32 offsets in 0..127, x_table: [128, N] f32 with N = 2^n, bits:
+// [B, N] 32-bit words or null (counter noise under (k0, k1) at (step,
+// b * N + lane)), out: [B, N] f32.  Launches on `stream` without
+// synchronising; returns the cudaError_t code.
 extern "C" int mc_channel_launch(const int* m, const float* x_table,
                                  const uint32_t* bits, float* out, float sigma,
                                  uint32_t k0, uint32_t k1, uint32_t step,
-                                 int B, int N, cudaStream_t stream) {
-  if (B <= 0 || N <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t total = static_cast<size_t>(B) * N;
-  const int threads = 256;
-  const size_t blocks = (total + threads - 1) / threads;
-  if (blocks > 0x7FFFFFFFu) return static_cast<int>(cudaErrorInvalidValue);
-  mc_channel_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      m, x_table, bits, out, sigma, k0, k1, step, B, N);
+                                 int B, int n, cudaStream_t stream) {
+  if (B <= 0 || n < 0 || n > 30) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = Tile::blocks(B, n);
+  if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  kernel_for(n)<<<static_cast<unsigned>(blocks), mc::kThreads, 0, stream>>>(
+      m, x_table, bits, out, sigma, k0, k1, step, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 

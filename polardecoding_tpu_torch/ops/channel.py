@@ -15,11 +15,16 @@ JAX's, and so are the normals and the LLRs of the frame step
 (ops/noise.py).  A key is an int64 tensor [..., 2] of two 32-bit words, so
 per-frame keys are a pure function of (seed, frame index) and a batch of
 them is one tensor.
+
+`frame_llr` is the frame step's channel: on the card one launch of the
+kernel csrc/frame_channel.cu (ops/frame_channel_kernel), whose plain
+version is awgn_llr of frame_keys here.
 """
 from __future__ import annotations
 
 import torch
 
+from polardecoding_tpu_torch.ops.frame_channel_kernel import frame_llr_cuda
 from polardecoding_tpu_torch.ops.noise import (
     MASK32,
     SQRT2,
@@ -84,7 +89,31 @@ def awgn_llr(x: torch.Tensor, keys: torch.Tensor, sigma) -> torch.Tensor:
     formed first in float32, added to the BPSK symbol in one FMA, then
     (y + y) / sigma^2.  The LLRs are bit-equal to that step's
     (ops/noise.py)."""
-    u = uniform_jax(random_bits(keys, x.shape[-1]))
+    return awgn_llr_from_words(x, random_bits(keys, x.shape[-1]), sigma)
+
+
+def awgn_llr_from_words(x: torch.Tensor, words: torch.Tensor, sigma) -> torch.Tensor:
+    """awgn_llr with the noise words given: x [B, N] bits, words [B, N]
+    32-bit words (any integer type) in place of random_bits(keys, N).  The
+    plain version of csrc/frame_channel.cu's `bits` mode."""
+    u = uniform_jax(words.to(torch.int64) & MASK32)
     sigma = torch.tensor(sigma, dtype=torch.float32, device=x.device)
     y = fma(erfinv_f32(u), sigma * SQRT2, bpsk(x))
     return (y + y) / (sigma * sigma)
+
+
+def frame_llr(x: torch.Tensor, key: torch.Tensor, fidx: torch.Tensor, sigma,
+              engine: str = "auto") -> torch.Tensor:
+    """The frame step's channel: LLRs [B, N] float32 of the codewords x
+    [B, N] (0/1) for frames fidx [B] under the point key [2], that is
+    awgn_llr(x, frame_keys(key, fidx), sigma).  On a CUDA tensor with
+    engine="auto" the kernel csrc/frame_channel.cu computes it in one
+    launch (ops/frame_channel_kernel.frame_llr_cuda; a failed build or
+    launch raises); on the CPU, or with engine="plain", the plain
+    functions above."""
+    if engine not in ("auto", "plain"):
+        raise ValueError(f"unknown channel engine {engine!r}")
+    key = key.to(x.device)
+    if engine == "plain" or x.device.type != "cuda":
+        return awgn_llr(x, frame_keys(key, fidx), sigma)
+    return frame_llr_cuda(x.to(torch.float32), key, fidx, sigma)

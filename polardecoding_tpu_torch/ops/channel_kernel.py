@@ -87,6 +87,8 @@ def mc_channel_cuda(m: torch.Tensor, x_table: torch.Tensor, sigma, seeds,
             or x_table.shape[0] != 128 or x_table.device != m.device):
         raise ValueError("x_table must be a [128, N] float32 tensor on m's device")
     B, N = m.shape[0], x_table.shape[1]
+    if N < 1 or N & (N - 1):
+        raise ValueError(f"N must be a power of two, got {N}")
     if bits is not None:
         if tuple(bits.shape) != (B, N) or bits.device != m.device:
             raise ValueError(f"bits must be [{B}, {N}] on m's device")
@@ -99,6 +101,7 @@ def mc_channel_cuda(m: torch.Tensor, x_table: torch.Tensor, sigma, seeds,
     k0, k1, _, step = (int(s) & MASK32 for s in seeds)
     _build.launch("mc_channel", _ARGTYPES, m.device, m32.data_ptr(),
                   xt.data_ptr(), None if bits is None else bits.data_ptr(),
-                  out.data_ptr(), float(sigma), k0, k1, step, B, N)
+                  out.data_ptr(), float(sigma), k0, k1, step, B,
+                  N.bit_length() - 1)
     LAUNCHES += 1
     return out

@@ -70,9 +70,8 @@ from polardecoding_tpu_torch.models.scl import (
     scl_decode_auto,
 )
 from polardecoding_tpu_torch.ops.channel import (
-    awgn_llr,
     fold_in,
-    frame_keys,
+    frame_llr,
     prng_key,
     random_bits,
 )
@@ -239,7 +238,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
     the batch of frames frame_start .. frame_start + batch - 1.
 
     key: the point's key from ops/channel (int64 [2]); sigma: a float.
-    engine: "auto" (the decoder's and the MC channel's CUDA kernels for a
+    engine: "auto" (the decoder's and the channel's CUDA kernels for a
     CUDA device, their plain versions on the CPU) or "plain".  encoder:
     "mxu" or "butterfly".  channel: "threefry" (per-frame keys, pure in
     (seed, frame index)) or "mc" (ops/channel_kernel.mc_channel: codeword
@@ -286,7 +285,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
             bad = u_hat != u
         else:
             w = _crc_encode(code, payload_from_index(fidx, tables.pn, K))
-            llr = awgn_llr(encode(w), frame_keys(key.to(device), fidx), sigma)
+            llr = frame_llr(encode(w), key, fidx, sigma, engine)
             u_hat, ties = decode(llr)
             bad = u_hat[:, tables.info_set] != w
         pm_ties = no_ties if ties is None else (ties > 0).sum()
@@ -339,7 +338,7 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
 
     def fresh_llr(key, fidx, sigma):
         x = encode(payload_from_index(fidx, tables.pn, K))
-        return awgn_llr(x, frame_keys(key.to(device), fidx), sigma)
+        return frame_llr(x, key, fidx, sigma, engine)
 
     def count(u_hat, fidx, retire):
         payload = payload_from_index(fidx.clamp_min(0), tables.pn, K)

@@ -100,8 +100,9 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "_libs", {})
     assert _build.sources() == ["bp_decode", "bp_wave", "bp_wave_mc",
-                                "mc_channel", "microbench_rolls",
-                                "probe_floor", "scl_decode"]
+                                "frame_channel", "mc_channel",
+                                "microbench_rolls", "probe_floor",
+                                "scl_decode"]
     with pytest.raises(_build.BuildError, match="nvcc"):
         _build.find_nvcc()
     with pytest.raises(_build.BuildError, match="nvcc"):
