@@ -113,9 +113,31 @@
    shape timed here; the SCL floor's share of the SCL kernel's two modes;
 13. runs the benchmark entry points at their defaults with the launch counts
    at 0: polardecoding_tpu_torch.bench.main() must print bench.py's keys,
-   every leg a positive rate, value the worse of the wave and SCL legs, and
-   launch each leg's kernel; `cli bench` must print its preset and rate;
-14. prints the kernels line (each kernel's launches on its main path, its
+   every leg a positive rate, value the worse of the wave and SCL legs, each
+   rate rounded to 0.1 and the two vs_baseline ratios to 1e-4 as bench.py
+   rounds them, and launch each leg's kernel; `cli bench` must print its
+   preset and its rate rounded to 0.1;
+14. BPr (BPr_128, batch 256, 2.0 dB): bpr_decode's u_hat and stage-error
+   table E bit-equal with the wave kernel and with the plain iterations,
+   and E again from the kernel's segments on a state whose overwritten
+   planes hold NaN; with the launch counts at 0, one make_bpr_step step
+   (the wave kernel 7 times, the frame channel once, no other kernel;
+   counters and E equal to engine="plain"'s) and run_bpr_point to 200 error
+   blocks, BLER in [0.08, 0.16] (BPr_128.c: 35/300 = 0.117); times the
+   step, a snapshot and the iterations, and profiles the step;
+15. the fused SNR sweep: the frame channel with a sigma table bit-equal to
+   its plain version on every element (S in {1, 3, 7} over -2 .. 10 dB, B
+   in {33, 16384}, N in {128, 1024}; S = 1 also against the scalar
+   launch); make_multisnr_step at 1.5, 2.0 and 2.5 dB on BP_1024 (batch
+   8192) and SCL_1024_L8_FASTR1 (16384), the launch counts at 0: per-SNR
+   counters equal with kernels and plain versions, one frame-channel and
+   one decoder launch a step; each step timed and profiled (the sigma
+   table's launch is timed beside the scalar one in phase 9's line);
+16. run_multiseed on SCL_1024_L8_FASTR1 with two seeds at 2.0 dB to 50 error
+   blocks, each seed's record equal to its own run_sweep; run_point on
+   BP_1024 (8192) and SCL_1024_L8_FASTR1 (16384) on a budget of 16 steps
+   at sync_every 1, 8, 8, 1: wall time, frames counted, frames/s;
+17. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
@@ -344,6 +366,35 @@ PROBE_TIMES = {
                      FLOOR3)}
 # the patterns' time: gather_rows on 8 rows at L=8, 8 tiles per SM
 MB_TIME = ("gather_rows", 8, 8)
+# the fused sweep's frame channel: a sigma table of S entries over SNRs
+# spread from -2 to 10 dB, frame i at sigmas[i % S]; and its timing beside
+# the scalar launch's (S = 3, the fused sweep's)
+SIGMA_TABLE_SIZES = (1, 3, 7)
+SIGMA_TABLE_BATCHES = (33, 16384)
+SIGMA_TABLE_NS = (128, 1024)
+SIGMA_TABLE_SPAN = (-2.0, 10.0)
+# BPr: BPr_128 at the C reference's batch (cli bpr's default); BPr_128.c gave
+# 35/300 = 0.117 at 2.0 dB (tests/golden/bpr_128_snr2.txt), BP_128 0.1127
+# (BASELINE.md:28); its 90 iterations and checkpoints (3, 6, 10, 20, 40, 80)
+# are 7 segments of the wave kernel: 3, 3, 4, 10, 20, 40 and 10
+BPR_PRESET = "BPr_128"
+BPR_BATCH = 256
+BPR_ERROR_BLOCKS = 200
+BPR_BLER_RANGE = (0.08, 0.16)
+BPR_WAVE_LAUNCHES = 7
+# the fused SNR sweep: the frame-step legs' presets and batches at three SNRs
+FUSED_SNRS = (1.5, 2.0, 2.5)
+FUSED_CASES = (("BP_1024", MAIN_BATCH, "bp_decode"),
+               ("SCL_1024_L8_FASTR1", 16384, "scl_decode_r1"))
+# multi-seed: two seeds of the FASTR1 leg, each its own run_sweep too
+MULTISEED_PRESET = "SCL_1024_L8_FASTR1"
+MULTISEED_SEEDS = (1024, 2048)
+MULTISEED_ERROR_BLOCKS = 50
+# run_point's chunked reads: a fixed budget of 16 steps (no error-block
+# stop), sync_every 1 and 8 in turns
+SYNC_CASES = (("BP_1024", MAIN_BATCH), ("SCL_1024_L8_FASTR1", 16384))
+SYNC_STEPS = 16
+SYNC_TURNS = (1, 8, 8, 1)
 # the keys of the JAX package's bench.py line (bench.py:266-289)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "bp_1024_wave_fps",
               "wave_preset", "wave_engine", "wave_itermax",
@@ -1500,11 +1551,19 @@ def phase_frame_channel_timing(card):
         fidx, tables.pn, p.code.K)), tables.g_rows)
     key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
     sigma = sigma_from_ebn0_db(MAIN_SNR)
-    outs, k, pl = {}, [], []
-    for engine, acc, timer, reps in (
-            ("plain", pl, cuda_ms, 1), ("auto", k, queued_ms, WAVE_KERNEL_REPS),
-            ("auto", k, queued_ms, WAVE_KERNEL_REPS), ("plain", pl, cuda_ms, 1)):
-        ms, out = timer(lambda: frame_llr(x, key, fidx, sigma, engine), reps)
+    # the fused sweep's launch: a sigma table of its three SNRs
+    table = torch.tensor([sigma_from_ebn0_db(v) for v in FUSED_SNRS],
+                         dtype=torch.float32, device=DEVICE)
+    outs, k, pl, tab = {}, [], [], []
+    for engine, acc, timer, reps, sig in (
+            ("plain", pl, cuda_ms, 1, sigma),
+            ("auto", k, queued_ms, WAVE_KERNEL_REPS, sigma),
+            ("table", tab, queued_ms, WAVE_KERNEL_REPS, table),
+            ("table", tab, queued_ms, WAVE_KERNEL_REPS, table),
+            ("auto", k, queued_ms, WAVE_KERNEL_REPS, sigma),
+            ("plain", pl, cuda_ms, 1, sigma)):
+        ms, out = timer(lambda: frame_llr(x, key, fidx, sig, engine.replace(
+            "table", "auto")), reps)
         acc.append(ms)
         outs.setdefault(engine, out)
     equal, err = frames_equal([(outs["auto"], outs["plain"], 0)], SCL_BATCH)
@@ -1513,6 +1572,7 @@ def phase_frame_channel_timing(card):
     small, ge5 = channel_branches(random_bits(frame_keys(key, fidx), N))
     emit({"frame_channel_timing": dict(
         card=card, preset=SCL_PRESET, batch=SCL_BATCH, kernel_ms=k, plain_ms=pl,
+        sigma_table_kernel_ms=tab, sigma_table_snrs=list(FUSED_SNRS),
         frames_equal=equal, log1p_rational=small, erf_inv_sqrt=ge5,
         elements=SCL_BATCH * N)})
     return (statistics.mean(k), statistics.mean(pl), err,
@@ -1741,15 +1801,287 @@ def phase_bench():
           f"bench legs {rec}")
     check(rec["value"] == min(rec["bp_1024_wave_fps"], rec["scl_fps"]),
           f"bench value {rec['value']}")
+    # rounded as bench.py's record: rates to 0.1, the baseline ratios to 1e-4
+    check(all(rec[k] == round(rec[k], 1) for k in legs + ("value",))
+          and all(rec[k] == round(rec[k], 4)
+                  for k in ("vs_baseline", "vs_baseline_fixed_iters")),
+          f"bench rates not rounded as bench.py's: {rec}")
     check(all(counts.values()), f"bench launches {counts}")
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         cli.main(["bench"])
     line = json.loads(out.getvalue().splitlines()[-1])
     emit({"cli_bench": line})
-    check(set(line) == {"preset", "frames_per_sec"} and line["frames_per_sec"] > 0,
+    check(set(line) == {"preset", "frames_per_sec"} and line["frames_per_sec"] > 0
+          and line["frames_per_sec"] == round(line["frames_per_sec"], 1),
           f"cli bench printed {line}")
     return rec
+
+
+def phase_sigma_table_compare():
+    """The frame channel's kernel with a sigma table (the fused sweep's
+    launch: frame i at sigmas[i % S]) against its plain version on the card,
+    bit for bit on every element: S in SIGMA_TABLE_SIZES over SNRs spread
+    across SIGMA_TABLE_SPAN, B in SIGMA_TABLE_BATCHES, N in SIGMA_TABLE_NS,
+    frames from 5; with S = 1 also against the scalar launch.  Returns the
+    largest |kernel - plain|."""
+    from polardecoding_tpu_torch.ops.channel import (fold_in, frame_llr,
+                                                     prng_key,
+                                                     sigma_from_ebn0_db)
+
+    worst = 0.0
+    gen = torch.Generator(device=DEVICE).manual_seed(11)
+    key = fold_in(prng_key(3, DEVICE), 150)
+    for N in SIGMA_TABLE_NS:
+        for B in SIGMA_TABLE_BATCHES:
+            x = torch.randint(0, 2, (B, N), generator=gen, device=DEVICE
+                              ).to(torch.float32)
+            fidx = torch.arange(B, device=DEVICE) + 5
+            for S in SIGMA_TABLE_SIZES:
+                snrs = torch.linspace(*SIGMA_TABLE_SPAN, S,
+                                      dtype=torch.float64).tolist()
+                table = torch.tensor([sigma_from_ebn0_db(v) for v in snrs],
+                                     dtype=torch.float32, device=DEVICE)
+                got = frame_llr(x, key, fidx, table)
+                pairs = [(got, frame_llr(x, key, fidx, table, engine="plain"), 0)]
+                if S == 1:
+                    pairs.append((got, frame_llr(x, key, fidx, float(table[0])), 0))
+                torch.cuda.synchronize()
+                equal, err = frames_equal(pairs, B)
+                rec = {"N": N, "B": B, "S": S, "snr_db": snrs,
+                       "frames_equal": equal, "max_abs_err": err,
+                       "scalar_launch_too": S == 1}
+                emit({"sigma_table_compare": rec})
+                check(equal == B and err == 0, f"sigma table != plain: {rec}")
+                worst = max(worst, err)
+    return worst
+
+
+def bpr_segments(checkpoints, iters):
+    """The iterations of each wave-kernel launch of a BPr decode: from one
+    sorted checkpoint to the next, then on to `iters`; empty segments are
+    not launched."""
+    segs, it = [], 0
+    for c in sorted(checkpoints):
+        segs.append(c - it)
+        it = c
+    segs.append(max(iters - it, 0))
+    return [g for g in segs if g]
+
+
+def phase_bpr(card):
+    """BPr on the card (BPR_PRESET at BPR_BATCH and MAIN_SNR).  bpr_decode
+    with the wave kernel and with the plain iterations: u_hat and E
+    bit-equal, and E again from the kernel's segments run by hand on a
+    state whose planes that an iteration overwrites (L[0], R[1..n]) hold
+    NaN, so that every plane the snapshot reads is one the kernel wrote
+    back.  Then, the launch counts at 0: one make_bpr_step step must launch
+    the wave kernel BPR_WAVE_LAUNCHES times and the frame channel once, no
+    other kernel, its counters and E equal to engine="plain"'s; and
+    run_bpr_point to BPR_ERROR_BLOCKS, BLER in BPR_BLER_RANGE, 7 wave and 1
+    channel launches a step.  Times the step (CUDA events; the host's
+    launches included), a snapshot, the 90 iterations' kernels with the
+    state's init (queued behind a sleep) and profiles the step."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.models.bp import (bpr_decode, bpr_stage_errors,
+                                                   wave_init_state)
+    from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_cuda
+    from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
+                                                     sigma_from_ebn0_db)
+    from polardecoding_tpu_torch.parallel.harness import (code_tables,
+                                                          make_bpr_step,
+                                                          run_bpr_point)
+
+    p = preset(BPR_PRESET)
+    dec, N = p.decoder, p.code.N
+    n = N.bit_length() - 1
+    segs = bpr_segments(dec.bpr_checkpoints, dec.bp_iters)
+    check(len(segs) == BPR_WAVE_LAUNCHES, f"BPr segments {segs}")
+    info = code_tables(p.code, DEVICE).info_set
+    llr, frozen, u = llr_frames(BPR_PRESET, BPR_BATCH, MAIN_SNR, DEVICE)
+    kw = dict(iters=dec.bp_iters, flavor=dec.bp_flavor,
+              checkpoints=dec.bpr_checkpoints)
+    got = bpr_decode(llr, frozen, u, info, **kw)
+    want = bpr_decode(llr, frozen, u, info, engine="plain", **kw)
+    state = wave_init_state(llr, frozen)
+    state[[0] + list(range(n + 2, 2 * n + 2))] = float("nan")
+    rows, it = [], 0
+    for c in sorted(dec.bpr_checkpoints):
+        if c > it:
+            bp_wave_cuda(state, c - it, dec.bp_flavor)
+        it = c
+        rows.append(bpr_stage_errors(state, info, u[:, info]))
+    torch.cuda.synchronize()
+    by_hand = torch.stack(rows)
+    equal, err = frames_equal([(got[0], want[0], 0)], BPR_BATCH)
+    rec = {"preset": BPR_PRESET, "batch": BPR_BATCH, "snr_db": MAIN_SNR,
+           "segments": segs, "u_hat_frames_equal": equal,
+           "E_equal": bool((got[1] == want[1]).all()),
+           "E_from_nan_planes_equal": bool((by_hand == want[1]).all()),
+           "E": want[1].tolist()}
+    emit({"bpr_compare": rec})
+    check(equal == BPR_BATCH and err == 0 and rec["E_equal"]
+          and rec["E_from_nan_planes_equal"], f"BPr kernel != plain: {rec}")
+
+    key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
+    sigma = sigma_from_ebn0_db(MAIN_SNR)
+    step = make_bpr_step(p, BPR_BATCH, DEVICE)
+    plain_step = make_bpr_step(p, BPR_BATCH, DEVICE, engine="plain")
+    reset_counts()
+    k_out = step(key, 0, sigma)
+    torch.cuda.synchronize()
+    counts = {k: launches(k) for k in kernels() if launches(k)}
+    p_out = plain_step(key, 0, sigma)
+    same = ([int(v) for v in k_out[:2]] == [int(v) for v in p_out[:2]]
+            and bool((k_out[2] == p_out[2]).all()))
+    emit({"main_path": {"path": f"{BPR_PRESET} make_bpr_step",
+                        "batch": BPR_BATCH,
+                        "counters": [int(v) for v in k_out[:2]],
+                        "E": k_out[2].tolist(), "plain_equal": same,
+                        "launches": counts}})
+    check(same, "BPr step counters or E differ between kernel and plain")
+    check(counts == {"bp_wave": BPR_WAVE_LAUNCHES, "frame_channel": 1},
+          f"BPr step launches {counts}")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res, E = run_bpr_point(p, MAIN_SNR, batch=BPR_BATCH, device=DEVICE,
+                           error_blocks=BPR_ERROR_BLOCKS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    steps = res.frames // BPR_BATCH
+    counts = {k: launches(k) for k in kernels() if launches(k)}
+    emit({"main_path": {
+        "path": f"{BPR_PRESET} run_bpr_point", "batch": BPR_BATCH,
+        "point": res.to_json(p.code.num_info), "seconds": seconds,
+        "checkpoints": list(dec.bpr_checkpoints),
+        "stage_errors_per_frame": (E / max(res.frames, 1)).round(6).tolist(),
+        "launches": counts}})
+    check(res.errblock >= BPR_ERROR_BLOCKS, f"run_bpr_point stopped early: {res}")
+    check(BPR_BLER_RANGE[0] <= res.bler <= BPR_BLER_RANGE[1],
+          f"BPr BLER {res.bler} at {MAIN_SNR} dB outside {BPR_BLER_RANGE}")
+    check(counts == {"bp_wave": BPR_WAVE_LAUNCHES * steps,
+                     "frame_channel": steps}, f"BPr point launches {counts}")
+
+    step_ms = [cuda_ms(lambda: step(key, 0, sigma), STEP_REPS)[0]
+               for _ in range(2)]
+    snap_ms = cuda_ms(lambda: bpr_stage_errors(state, info, u[:, info]),
+                      KERNEL_REPS)[0]
+
+    def iterations():
+        fresh = wave_init_state(llr, frozen)
+        for g in segs:
+            bp_wave_cuda(fresh, g, dec.bp_flavor)
+
+    iter_ms = queued_ms(iterations, KERNEL_REPS)[0]
+    emit({"bpr_timing": {
+        "card": card, "preset": BPR_PRESET, "batch": BPR_BATCH,
+        "step_ms": step_ms, "snapshot_ms": snap_ms,
+        "snapshots_per_step": len(dec.bpr_checkpoints),
+        "init_and_iterations_queued_ms": iter_ms, "wave_launches": len(segs)}})
+    phase_profile(card, f"{BPR_PRESET} BPr step", BPR_BATCH,
+                  lambda s: [int(v) for v in step(key, s * BPR_BATCH, sigma)[:2]])
+
+
+def phase_fused_sweep(card):
+    """make_multisnr_step at FUSED_SNRS on each of FUSED_CASES, the launch
+    counts at 0: the per-SNR counters equal with the kernels and with
+    engine="plain", one frame-channel launch (the sigma table) and one
+    decoder launch a step and no other kernel, every frame counted once;
+    each step's time (CUDA events, host included) and a profile of it."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.channel import prng_key, sigma_from_ebn0_db
+    from polardecoding_tpu_torch.parallel.harness import make_multisnr_step
+
+    sigmas = torch.tensor([sigma_from_ebn0_db(v) for v in FUSED_SNRS],
+                          dtype=torch.float32, device=DEVICE)
+    S = len(FUSED_SNRS)
+    for name, batch, kernel in FUSED_CASES:
+        p = preset(name)
+        key = prng_key(p.sweep.seed, DEVICE)
+        step = make_multisnr_step(p, batch, S, DEVICE)
+        reset_counts()
+        got = [c.tolist() for c in step(key, 0, sigmas)]
+        torch.cuda.synchronize()
+        counts = {k: launches(k) for k in kernels() if launches(k)}
+        want = [c.tolist() for c in make_multisnr_step(
+            p, batch, S, DEVICE, engine="plain")(key, 0, sigmas)]
+        ms = [cuda_ms(lambda: step(key, batch, sigmas), STEP_REPS)[0]
+              for _ in range(2)]
+        emit({"main_path": {"path": f"{name} make_multisnr_step",
+                            "batch": batch, "snr_db": list(FUSED_SNRS),
+                            "counters": got, "plain": want, "launches": counts,
+                            "card": card, "step_ms": ms}})
+        check(got == want, f"{name}: multi-SNR counters kernel {got} != plain {want}")
+        check(sum(got[2]) == batch and all(0 <= e <= f for e, f in zip(got[1], got[2])),
+              f"{name}: multi-SNR frames {got}")
+        check(counts == {kernel: 1, "frame_channel": 1},
+              f"{name}: multi-SNR step launches {counts}")
+        phase_profile(card, f"{name} multi-SNR step", batch,
+                      lambda s: [c.tolist() for c in step(key, s * batch, sigmas)])
+
+
+def phase_sweeps(card):
+    """run_multiseed on MULTISEED_PRESET at MAIN_SNR: each seed's record
+    equal to that seed's own run_sweep; then run_point on SYNC_CASES on a
+    fixed budget of SYNC_STEPS steps (the error-block target out of reach)
+    at sync_every 1 and 8 in turns (SYNC_TURNS), one step function built
+    and warmed beforehand: the wall time, the frames counted (8 counts
+    whole chunks, one past the budget) and frames per second."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.parallel.harness import (make_frame_step,
+                                                          run_multiseed,
+                                                          run_point, run_sweep)
+
+    p = preset(MULTISEED_PRESET)
+    kw = dict(snr_points=[MAIN_SNR], error_blocks=MULTISEED_ERROR_BLOCKS,
+              batch=SCL_BATCH, device=DEVICE)
+    reset_counts()
+    per_seed, averaged = run_multiseed(p, list(MULTISEED_SEEDS), **kw)
+    torch.cuda.synchronize()
+    counts = {k: launches(k) for k in kernels() if launches(k)}
+    alone = {seed: run_sweep(p, seed=seed, **kw) for seed in MULTISEED_SEEDS}
+
+    def fields(r):
+        return r.snr_db, r.errbit, r.errblock, r.frames, r.seed, r.pm_ties
+
+    emit({"main_path": {"path": f"{MULTISEED_PRESET} run_multiseed",
+                        "averaged": averaged, "launches": counts,
+                        "per_seed": {str(s): [r.to_json(p.code.num_info)
+                                              for r in rs]
+                                     for s, rs in per_seed.items()}}})
+    for seed in MULTISEED_SEEDS:
+        check([fields(r) for r in per_seed[seed]]
+              == [fields(r) for r in alone[seed]],
+              f"seed {seed}: run_multiseed's record differs from run_sweep's")
+    check(averaged[0]["errblock"] >= len(MULTISEED_SEEDS) * MULTISEED_ERROR_BLOCKS
+          and counts.get("scl_decode_r1", 0) > 0, f"multi-seed {averaged}")
+
+    for name, batch in SYNC_CASES:
+        q = preset(name)
+        step = make_frame_step(q, batch, DEVICE)
+        cap = SYNC_STEPS * batch
+        run_point(q, MAIN_SNR, batch=batch, device=DEVICE, step_fn=step,
+                  error_blocks=1 << 40, max_frames=2 * batch)  # warmup
+        turns = []
+        for k in SYNC_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = run_point(q, MAIN_SNR, batch=batch, device=DEVICE,
+                            step_fn=step, error_blocks=1 << 40,
+                            max_frames=cap, sync_every=k)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            turns.append({"sync_every": k, "wall_s": wall,
+                          "frames": res.frames, "errblock": res.errblock,
+                          "frames_per_s": res.frames / wall})
+            # every chunk read counts, and the one pending at the stop
+            chunks = 1 if k == 1 else -(-SYNC_STEPS // k) + 1
+            check(res.frames == (cap if k == 1 else chunks * k * batch),
+                  f"{name} sync_every={k}: {res.frames} frames")
+        emit({"sync_every_timing": {"card": card, "preset": name,
+                                    "batch": batch, "budget_steps": SYNC_STEPS,
+                                    "turns": turns}})
 
 
 def bound(nbytes, ops, int_ops=0):
@@ -2048,6 +2380,12 @@ def main() -> int:
         times[name] = (ms, plain_ms, probe_worst[name])
         probe_bounds[name] = work
     phase_bench()
+    phase_bpr(card)
+    ms, plain_ms, worst = times["frame_channel"]
+    times["frame_channel"] = (ms, plain_ms,
+                              max(worst, phase_sigma_table_compare()))
+    phase_fused_sweep(card)
+    phase_sweeps(card)
     check("jax" not in sys.modules, "the port imported jax")
 
     p = preset(SCL_PRESET)

@@ -9,7 +9,8 @@ early-stop wave leg and the SCL leg (the headline cannot hide the slower
 decoder), `bp_1024_fixed100_fps` the 100-iteration BP frame step,
 `scl_fps` the SCL preset's frame step (default SCL_1024_L8_FASTR1, the
 rate-1 flavor) and `scl_1024_l8_fps` the exact decoder's, each against the
-1e7 frames/s north star.  The metric names the device it ran on.
+1e7 frames/s north star.  Rates are rounded to 0.1 and the ratios to
+1e-4, as bench.py rounds them.  The metric names the device it ran on.
 
 Each leg runs the full Monte-Carlo pipeline (payload, encode, channel,
 decode, count) through the port's entry points: make_frame_step, and
@@ -251,20 +252,21 @@ def main(argv=None):
         "metric": "decoded frames/s at N=1024, 1 device "
                   f"({where}) — min(BP early-stop wave engine, SCL L=8), "
                   f"full MC pipeline at {args.snr:g} dB",
-        "value": worst,
+        "value": round(worst, 1),
         "unit": "frames/s",
-        "vs_baseline": worst / BASELINE_FRAMES_PER_SEC,
-        "bp_1024_wave_fps": bp_wave_fps,
+        "vs_baseline": round(worst / BASELINE_FRAMES_PER_SEC, 4),
+        "bp_1024_wave_fps": None if bp_wave_fps is None
+        else round(bp_wave_fps, 1),
         "wave_preset": None if bp_wave_fps is None else args.wave_preset,
         "wave_engine": None if bp_wave_fps is None else args.wave_engine,
         "wave_itermax": None if bp_wave_fps is None
         else (args.wave_itermax or preset(args.wave_preset).decoder.bp_iters),
-        "bp_1024_fixed100_fps": bp_fixed_fps,
+        "bp_1024_fixed100_fps": round(bp_fixed_fps, 1),
         "scl_preset": args.scl_preset,
-        "scl_fps": scl_fps,
-        "scl_1024_l8_fps": scl_exact_fps,
-        "vs_baseline_fixed_iters": min(bp_fixed_fps, scl_fps)
-        / BASELINE_FRAMES_PER_SEC,
+        "scl_fps": round(scl_fps, 1),
+        "scl_1024_l8_fps": round(scl_exact_fps, 1),
+        "vs_baseline_fixed_iters": round(
+            min(bp_fixed_fps, scl_fps) / BASELINE_FRAMES_PER_SEC, 4),
     }
     print(json.dumps(rec), flush=True)
     return rec

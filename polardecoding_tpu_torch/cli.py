@@ -1,15 +1,20 @@
-"""Command-line driver of the port (the JAX package's cli `run`, `bench`
-and `presets` subcommands), with structured JSON results.
+"""Command-line interface of the port (the JAX package's cli `run`, `bpr`,
+`bench` and `presets` subcommands), with structured JSON results.
 
   python -m polardecoding_tpu_torch.cli run --preset BP_1024 --snr 1.0 3.0 0.5
   python -m polardecoding_tpu_torch.cli run --preset BP_128 --out bp128.json
+  python -m polardecoding_tpu_torch.cli run --preset SCL_1024_L8 --seeds 1 2 3
+  python -m polardecoding_tpu_torch.cli bpr --preset BPr_128 --snr 2.0
   python -m polardecoding_tpu_torch.cli bench --preset BP_1024 --batch 4096
   python -m polardecoding_tpu_torch.cli presets
 
-`run` and `bench` compute on the card; `--device cpu` runs the plain PyTorch
-versions instead of the CUDA kernels (slow; for checks at small sizes).
-`bench` prints {"preset", "frames_per_sec"}: the frame step's frames/s
-(bench.bench_step, 5 steps after 2 of warmup).
+`run`, `bpr` and `bench` compute on the card; `--device cpu` runs the plain
+PyTorch versions instead of the CUDA kernels (slow; for checks at small
+sizes).  `run --seeds` replicates the sweep over seeds and prints the
+per-seed records and their pooled average.  `bpr` prints, per SNR point,
+the BLER and the reference's stage-error table E / frames at each
+checkpoint.  `bench` prints {"preset", "frames_per_sec"}: the frame step's
+frames/s (bench.bench_step, 5 steps after 2 of warmup).
 """
 from __future__ import annotations
 
@@ -34,33 +39,73 @@ def _snr_list(args):
 
 def cmd_run(args):
     from polardecoding_tpu_torch.configs import preset
-    from polardecoding_tpu_torch.parallel.harness import run_sweep
+    from polardecoding_tpu_torch.parallel.harness import run_multiseed, run_sweep
 
     p = preset(args.preset)
     log = (lambda m: print(m, file=sys.stderr)) if args.verbose else None
-    results = run_sweep(
-        p,
-        batch=args.batch,
-        device=args.device,
-        snr_points=_snr_list(args),
-        error_blocks=args.error_blocks,
-        max_frames=args.max_frames,
-        seed=args.seed,
-        checkpoint_path=args.checkpoint,
-        log=log,
-    )
-    text = json.dumps([r.to_json(p.code.num_info) for r in results], indent=1)
+    if args.seeds:
+        per_seed, averaged = run_multiseed(
+            p, args.seeds, snr_points=_snr_list(args), batch=args.batch,
+            error_blocks=args.error_blocks, max_frames=args.max_frames,
+            device=args.device, log=log,
+        )
+        recs = {
+            "averaged": averaged,
+            "per_seed": {
+                str(s): [r.to_json(p.code.num_info) for r in rs]
+                for s, rs in per_seed.items()
+            },
+        }
+    else:
+        results = run_sweep(
+            p,
+            batch=args.batch,
+            device=args.device,
+            snr_points=_snr_list(args),
+            error_blocks=args.error_blocks,
+            max_frames=args.max_frames,
+            seed=args.seed,
+            checkpoint_path=args.checkpoint,
+            log=log,
+        )
+        recs = [r.to_json(p.code.num_info) for r in results]
+    text = json.dumps(recs, indent=1)
     if args.out:
         with open(args.out, "w") as f:
             f.write(text)
     print(text)
 
 
+def cmd_bpr(args):
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.parallel.harness import run_bpr_point
+
+    p = preset(args.preset)
+    out = {}
+    for snr in _snr_list(args) or p.sweep.snr_points():
+        res, E = run_bpr_point(
+            p, snr, batch=args.batch or 256, device=args.device,
+            error_blocks=args.error_blocks, max_frames=args.max_frames,
+            seed=args.seed,
+        )
+        out[snr] = {
+            "bler": res.bler,
+            "frames": res.frames,
+            "errblock": res.errblock,
+            # the reference's table: E / run per checkpoint iteration
+            # (BPr_128.c:229-255)
+            "stage_errors_per_frame": (E / max(res.frames, 1)).round(6).tolist(),
+            "checkpoints": list(p.decoder.bpr_checkpoints),
+        }
+    print(json.dumps(out, indent=1))
+
+
 def cmd_bench(args):
     from polardecoding_tpu_torch.bench import bench_step
 
     fps = bench_step(args.preset, args.batch, device=args.device)
-    print(json.dumps({"preset": args.preset, "frames_per_sec": fps}))
+    print(json.dumps({"preset": args.preset,
+                      "frames_per_sec": round(fps, 1)}))
 
 
 def cmd_presets(args):
@@ -88,12 +133,26 @@ def main(argv=None):
     rp.add_argument("--error-blocks", type=int, default=None)
     rp.add_argument("--max-frames", type=int, default=None)
     rp.add_argument("--seed", type=int, default=None)
+    rp.add_argument("--seeds", type=int, nargs="+", default=None,
+                    help="multi-seed replication: run each seed, report "
+                         "per-seed records and the pooled average")
     rp.add_argument("--checkpoint", default=None)
     rp.add_argument("--out", default=None)
     rp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     rp.add_argument("-v", "--verbose", action="store_true")
     rp.set_defaults(fn=cmd_run)
+
+    br = sub.add_parser("bpr", help="BPr per-stage convergence instrumentation")
+    br.add_argument("--preset", default="BPr_128")
+    br.add_argument("--batch", type=int, default=None)
+    br.add_argument("--snr", type=float, nargs="*", default=None)
+    br.add_argument("--error-blocks", type=int, default=None)
+    br.add_argument("--max-frames", type=int, default=None)
+    br.add_argument("--seed", type=int, default=None)
+    br.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions")
+    br.set_defaults(fn=cmd_bpr)
 
     bp = sub.add_parser("bench", help="throughput benchmark")
     bp.add_argument("--preset", default="BP_1024")

@@ -13,7 +13,11 @@
 // (jax.random.bits), then jax's uniform, XLA's erf_inv (noise.cuh),
 // y = fmaf(erfinv(u), sigma * sqrt(2), 1 - 2x) with sigma * sqrt(2) one
 // float32 product, and the LLR (y + y) / sigma^2, correctly rounded.  With
-// `bits` [B, N] given, those words replace the threefry words.
+// `bits` [B, N] given, those words replace the threefry words.  With a
+// sigma table of S entries (the fused SNR sweep, where frame i runs at
+// sigmas[i mod S]), frame b's sigma is sigmas[fidx[b] mod S] and its
+// sigma * sqrt(2) and sigma^2 are the same two float32 products, formed
+// once a frame where the key is folded.
 //
 // What bounds it on this card: integer issue.  An element needs a two-word
 // threefry block, about 70 integer operations, and about 70 float ones
@@ -35,28 +39,41 @@ constexpr int kMainN = 10;  // log2 of the main path's N
 constexpr int kElemsLog = 2;  // 4 elements a thread
 using Tile = mc::Tile<kElemsLog>;
 
+constexpr float kSqrt2 = 0x1.6a09e6p+0f;
+
 // NC > 0 compiles the kernel for n = NC; NC = 0 takes n at run time.
-template <int NC>
+// TABLE: each frame's sigma from the table `sigmas` of S entries (then
+// `bits` is null); else the scalar `sigma` for every frame.
+template <int NC, bool TABLE>
 __global__ void __launch_bounds__(mc::kThreads)
 frame_channel_kernel(const float* __restrict__ x,
                      const long long* __restrict__ fidx,
                      const long long* __restrict__ key,
-                     const uint32_t* __restrict__ bits, float* __restrict__ out,
-                     float sigma, int B, int n_arg) {
+                     const uint32_t* __restrict__ bits,
+                     const float* __restrict__ sigmas, float* __restrict__ out,
+                     float sigma, int S, int B, int n_arg) {
   // the tile's frame keys: one at n >= kTileLog, kTile >> n below
   constexpr int kKeys = NC >= Tile::kTileLog ? 1 : Tile::kTile >> NC;
   __shared__ uint2 keys[kKeys];
+  // with a table, each frame's (sigma * sqrt(2), sigma^2)
+  __shared__ float2 scales[TABLE ? kKeys : 1];
   const int n = NC > 0 ? NC : n_arg;
   const Tile tile(n, B);
-  if (!bits) {
+  if (!bits) {  // TABLE implies no bits
     const uint32_t p0 = static_cast<uint32_t>(key[0]);
     const uint32_t p1 = static_cast<uint32_t>(key[1]);
-    for (int f = threadIdx.x; f < tile.frames; f += mc::kThreads)
-      keys[f] = mc::threefry2x32(p0, p1, 0u,
-                                 static_cast<uint32_t>(fidx[tile.b0 + f]));
+    for (int f = threadIdx.x; f < tile.frames; f += mc::kThreads) {
+      const long long i = fidx[tile.b0 + f];
+      keys[f] = mc::threefry2x32(p0, p1, 0u, static_cast<uint32_t>(i));
+      if (TABLE) {
+        const long long r = i % S;  // the floor modulus, as torch's %
+        const float s = sigmas[r < 0 ? r + S : r];
+        scales[f] = make_float2(s * kSqrt2, s * s);
+      }
+    }
     __syncthreads();
   }
-  const float s_sqrt2 = sigma * 0x1.6a09e6p+0f;
+  const float s_sqrt2 = sigma * kSqrt2;
   const float s2 = sigma * sigma;
 #pragma unroll
   for (int k = 0; k < Tile::kElems; ++k) {
@@ -74,17 +91,23 @@ frame_channel_kernel(const float* __restrict__ x,
                                        static_cast<uint32_t>(lane));
       w = z.x ^ z.y;
     }
-    const float y = fmaf(mc::erfinv_jax(mc::uniform_jax(w)), s_sqrt2,
+    const float2 sc = TABLE ? scales[f] : make_float2(s_sqrt2, s2);
+    const float y = fmaf(mc::erfinv_jax(mc::uniform_jax(w)), sc.x,
                          1.0f - 2.0f * x[e]);
-    out[e] = __fdiv_rn(y + y, s2);
+    out[e] = __fdiv_rn(y + y, sc.y);
   }
 }
 
 using Kernel = void (*)(const float*, const long long*, const long long*,
-                        const uint32_t*, float*, float, int, int);
+                        const uint32_t*, const float*, float*, float, int, int,
+                        int);
 
-Kernel kernel_for(int n) {
-  return n == kMainN ? frame_channel_kernel<kMainN> : frame_channel_kernel<0>;
+Kernel kernel_for(int n, bool table) {
+  if (table)
+    return n == kMainN ? frame_channel_kernel<kMainN, true>
+                       : frame_channel_kernel<0, true>;
+  return n == kMainN ? frame_channel_kernel<kMainN, false>
+                     : frame_channel_kernel<0, false>;
 }
 
 }  // namespace
@@ -92,17 +115,21 @@ Kernel kernel_for(int n) {
 // x: [B, N] f32 0/1 with N = 2^n, fidx: [B] int64 frame indices (the low 32
 // bits are folded in), key: [2] int64, the point key's two words, bits:
 // [B, N] 32-bit words or null (threefry words under each frame's key; with
-// bits, fidx and key are not read), out: [B, N] f32.  Launches on `stream`
-// without synchronising; returns the cudaError_t code.
+// bits, fidx and key are not read), sigmas: [S] f32 or null (then every
+// frame takes `sigma`; with sigmas, bits must be null), out: [B, N] f32.
+// Launches on `stream` without synchronising; returns the cudaError_t code.
 extern "C" int frame_channel_launch(const float* x, const long long* fidx,
                                     const long long* key, const uint32_t* bits,
-                                    float* out, float sigma, int B, int n,
+                                    const float* sigmas, float* out,
+                                    float sigma, int S, int B, int n,
                                     cudaStream_t stream) {
-  if (B <= 0 || n < 0 || n > 30) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || n < 0 || n > 30 || (sigmas && (bits || S <= 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const long long blocks = Tile::blocks(B, n);
   if (blocks > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
-  kernel_for(n)<<<static_cast<unsigned>(blocks), mc::kThreads, 0, stream>>>(
-      x, fidx, key, bits, out, sigma, B, n);
+  kernel_for(n, sigmas != nullptr)<<<static_cast<unsigned>(blocks),
+                                     mc::kThreads, 0, stream>>>(
+      x, fidx, key, bits, sigmas, out, sigma, S, B, n);
   return static_cast<int>(cudaGetLastError());
 }
 

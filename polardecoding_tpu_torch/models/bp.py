@@ -22,6 +22,8 @@ half below (persistent state advanced K iterations at a time) follows the
 same rule: `bp_wave`, `bp_wave_fused` and `bp_wave_mc` launch the kernels of
 ops/bp_wave_kernel.py and ops/bp_wave_mc_kernel.py on a CUDA tensor and run
 their plain versions (`*_plain`) on a CPU tensor or with engine="plain".
+`bpr_decode` (BPr's stage-error instrumentation) runs its iterations
+through `bp_wave`.
 
 Optional early stopping (extension beyond the reference): with
 `early_stop_every > 0`, every that many iterations the current hard decision
@@ -271,6 +273,75 @@ def bp_wave_fused(state, ch_llr, retire, iters: int = 8,
 
     return bp_wave_fused_cuda(state, ch_llr, retire, iters=iters,
                               flavor=flavor, check_every=check_every)
+
+
+# ---------------------------------------------------------------------------
+# BPr instrumentation (ref: BPr_128.c:373-580): BP with a snapshot of every
+# stage's hard decisions at each checkpoint iteration.  The message lists
+# Ls, Rs of the JAX package's bpr_decode are the wave state's planes (L[n]
+# the channel LLRs, R[0] the frozen row), so the iterations between
+# checkpoints are bp_wave's, the kernel of ops/bp_wave_kernel.py on a CUDA
+# float32 tensor.
+
+
+def bpr_stage_errors(state: torch.Tensor, info_set: torch.Tensor,
+                     true_info: torch.Tensor) -> torch.Tensor:
+    """[n+1] int64, summed over the batch: for each stage i, the info-bit
+    mismatches of the hard decisions sign(L[i] + R[i]) < 0 carried left
+    through butterfly levels i-1 .. 0 (upper <- upper xor lower), against
+    true_info [B, K'].  The n+1 decision planes are stacked, and level k is
+    applied to every plane above it at once: n in-place xor steps."""
+    n = state.shape[0] // 2 - 1
+    B, N = state.shape[1:]
+    b = (state[:n + 1] + state[n + 1:] < 0).to(torch.int8)
+    for k in range(n - 1, -1, -1):
+        d = 1 << k
+        v = b[k + 1:].view(n - k, B, N // (2 * d), 2, d)
+        v[..., 0, :] ^= v[..., 1, :]
+    return (b[:, :, info_set] != true_info).sum(dim=(1, 2))
+
+
+def bpr_decode(ch_llr: torch.Tensor, frozen: torch.Tensor, true_u: torch.Tensor,
+               info_positions, iters: int = 90, flavor: str = "minsum_lut",
+               checkpoints: tuple = (3, 6, 10, 20, 40, 80),
+               engine: str = "auto"):
+    """BP with a snapshot at each checkpoint iteration (the JAX package's
+    bpr_decode): (u_hat [B, N] int8, E [len(checkpoints), n+1] int64, row j
+    the stage errors (bpr_stage_errors) after sorted(checkpoints)[j]
+    iterations).  As there, a repeated checkpoint snapshots the same state
+    again, the iterations run on to a checkpoint past `iters`, and u_hat is
+    decided after max(iters, the last checkpoint) iterations.
+
+    On a CUDA float32 tensor with engine="auto" the iterations between
+    checkpoints run through the wave kernel (bp_wave, one launch a segment
+    of at least one iteration, on the decode's own state); elsewhere, or
+    with engine="plain", through bp_wave_plain in ch_llr's dtype.  The
+    kernel is float32-only: another dtype on a CUDA tensor with
+    engine="auto" raises ValueError."""
+    _check_engine(engine)
+    if (engine == "auto" and ch_llr.device.type == "cuda"
+            and ch_llr.dtype != torch.float32):
+        raise ValueError(f"the BP wave kernel is float32-only, got "
+                         f"{ch_llr.dtype}: pass engine='plain'")
+    info_set = torch.as_tensor(info_positions, device=ch_llr.device)
+    true_info = true_u[:, info_set]
+    n = ch_llr.shape[1].bit_length() - 1
+    state = wave_init_state(ch_llr, frozen)
+
+    def advance(state, count):
+        if count == 0:
+            return state
+        return bp_wave(state, count, flavor, engine)
+
+    errs, it = [], 0
+    for c in sorted(checkpoints):
+        state = advance(state, c - it)
+        it = c
+        errs.append(bpr_stage_errors(state, info_set, true_info))
+    if it < iters:
+        state = advance(state, iters - it)
+    u_hat = ((state[0] + state[n + 1] < 0) & ~frozen).to(torch.int8)
+    return u_hat, torch.stack(errs)
 
 
 # ---------------------------------------------------------------------------

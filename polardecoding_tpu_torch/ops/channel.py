@@ -82,7 +82,8 @@ def bpsk(x: torch.Tensor) -> torch.Tensor:
 def awgn_llr(x: torch.Tensor, keys: torch.Tensor, sigma) -> torch.Tensor:
     """Modulate, add noise, return channel LLRs 2y/sigma^2 (float32).
 
-    x: [B, N] bits; keys: [B, 2] per-frame keys; sigma: a float.
+    x: [B, N] bits; keys: [B, 2] per-frame keys; sigma: a float, or a
+    per-frame float32 tensor [B] (an SNR sweep folded into the batch).
 
     The arithmetic is the JAX package's frame step as XLA compiles it: the
     noise term is erfinv(u) * (sigma * sqrt(2)), with the scalar product
@@ -97,7 +98,9 @@ def awgn_llr_from_words(x: torch.Tensor, words: torch.Tensor, sigma) -> torch.Te
     32-bit words (any integer type) in place of random_bits(keys, N).  The
     plain version of csrc/frame_channel.cu's `bits` mode."""
     u = uniform_jax(words.to(torch.int64) & MASK32)
-    sigma = torch.tensor(sigma, dtype=torch.float32, device=x.device)
+    sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+    if sigma.ndim == 1:
+        sigma = sigma[:, None]
     y = fma(erfinv_f32(u), sigma * SQRT2, bpsk(x))
     return (y + y) / (sigma * sigma)
 
@@ -106,7 +109,9 @@ def frame_llr(x: torch.Tensor, key: torch.Tensor, fidx: torch.Tensor, sigma,
               engine: str = "auto") -> torch.Tensor:
     """The frame step's channel: LLRs [B, N] float32 of the codewords x
     [B, N] (0/1) for frames fidx [B] under the point key [2], that is
-    awgn_llr(x, frame_keys(key, fidx), sigma).  On a CUDA tensor with
+    awgn_llr(x, frame_keys(key, fidx), sigma).  sigma is a float, or a
+    float32 table [S] on x's device from which frame b takes
+    sigma[fidx[b] % S] (the fused SNR sweep).  On a CUDA tensor with
     engine="auto" the kernel csrc/frame_channel.cu computes it in one
     launch (ops/frame_channel_kernel.frame_llr_cuda; a failed build or
     launch raises); on the CPU, or with engine="plain", the plain
@@ -115,5 +120,7 @@ def frame_llr(x: torch.Tensor, key: torch.Tensor, fidx: torch.Tensor, sigma,
         raise ValueError(f"unknown channel engine {engine!r}")
     key = key.to(x.device)
     if engine == "plain" or x.device.type != "cuda":
+        if isinstance(sigma, torch.Tensor):
+            sigma = sigma[fidx % len(sigma)]
         return awgn_llr(x, frame_keys(key, fidx), sigma)
     return frame_llr_cuda(x.to(torch.float32), key, fidx, sigma)

@@ -6,8 +6,10 @@ It is the port's own kernel, not a port of a TPU kernel: the JAX package
 computes this function in XLA (its ops/channel.awgn_llr of frame_keys).
 The plain version is ops/channel.awgn_llr(x, frame_keys(key, fidx), sigma),
 and of the `bits` mode ops/channel.awgn_llr_from_words; ops/channel.frame_llr
-dispatches between kernel and plain version.  `LAUNCHES` counts the
-kernel's launches.
+dispatches between kernel and plain version.  A launch takes one sigma
+for every frame (the frame steps) or a sigma table from which each frame
+takes its own (the fused SNR sweep).  `LAUNCHES` counts the kernel's
+launches.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ SOURCE = "polardecoding_tpu_torch/csrc/frame_channel.cu"
 REPLACES = ("polardecoding_tpu/ops/channel.py:27 (awgn_llr with frame_keys, "
             "computed by XLA in the JAX package: no TPU kernel)")
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_float] + [ctypes.c_int] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_float]
+             + [ctypes.c_int] * 3)
 
 
 def frame_llr_cuda(x: torch.Tensor, key, fidx, sigma,
@@ -32,9 +35,11 @@ def frame_llr_cuda(x: torch.Tensor, key, fidx, sigma,
     of two) on the card: frame b's noise under fold_in(key, fidx[b]), key an
     int64 [2] tensor and fidx an int64 [B] tensor on x's device (the low 32
     bits of an index are folded in); with bits [B, N] (32-bit words), those
-    words instead, and key and fidx may be None.  Launches on the current
-    stream without synchronising; raises on any input the kernel does not
-    take and when the launch is refused."""
+    words instead, and key and fidx may be None.  sigma: a float, or a
+    float32 table [S] on x's device, from which frame b takes
+    sigma[fidx[b] % S] (not with bits).  Launches on the current stream
+    without synchronising; raises on any input the kernel does not take and
+    when the launch is refused."""
     global LAUNCHES
     if x.dtype != torch.float32 or x.ndim != 2:
         raise ValueError(f"x must be [B, N] float32, got {x.dtype} "
@@ -59,11 +64,23 @@ def frame_llr_cuda(x: torch.Tensor, key, fidx, sigma,
             raise ValueError(f"bits must be [{B}, {N}] on x's device")
         bits = words32(bits)
         ptrs = (None, None, bits.data_ptr())
+    table, S = None, 0
+    if isinstance(sigma, torch.Tensor):
+        if (sigma.dtype != torch.float32 or sigma.ndim != 1
+                or not len(sigma) or sigma.device != x.device):
+            raise ValueError("a sigma table must be a non-empty float32 [S] "
+                             "tensor on x's device")
+        if bits is not None:
+            raise ValueError("a sigma table takes its frames' indices: not "
+                             "with bits")
+        table = sigma.contiguous()  # held until the launch
+        S, sigma = len(table), 0.0
     x = x.contiguous()
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
     if B == 0:
         return out
     _build.launch("frame_channel", _ARGTYPES, x.device, x.data_ptr(), *ptrs,
-                  out.data_ptr(), float(sigma), B, N.bit_length() - 1)
+                  None if table is None else table.data_ptr(), out.data_ptr(),
+                  float(sigma), S, B, N.bit_length() - 1)
     LAUNCHES += 1
     return out

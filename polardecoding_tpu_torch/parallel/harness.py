@@ -30,8 +30,14 @@ Presets with scl_r1 > 0 (the _FASTR1 ones) decode with the approximate
 rate-1 SCL flavor on every device; the JAX package decodes them so only
 through its TPU kernel, and exact elsewhere.
 
-Out of this slice: decoder kind "bpr" (ROADMAP A8) raises
-NotImplementedError.  There is no multi-device path yet (ROADMAP A9).
+BPr presets (decoder kind "bpr") run on make_bpr_step and run_bpr_point,
+whose step also returns the per-checkpoint stage-error table; their
+iterations go through the unfused wave kernel on the card.  The fused SNR
+sweep (make_multisnr_step, run_fused_sweep) runs frame i at sigmas[i %
+num_snr], one launch of the frame channel with a sigma table a step, and
+counts per SNR.  run_multiseed replicates a sweep over seeds.
+
+Out of this slice: there is no multi-device path yet (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from polardecoding_tpu_torch.models.bp import (
     bp_wave,
     bp_wave_fused,
     bp_wave_mc,
+    bpr_decode,
     mc_delta,
     mc_meta_init,
     mc_tables,
@@ -201,9 +208,22 @@ def _make_decoder(preset: Preset, tables: CodeTables, engine: str) -> Callable:
         return lambda llr: cascl_decode(
             llr, frozen, tables.info_set, crc_R, list_size=dec.list_size,
             return_ties=True, engine=engine, **flavor)
-    raise NotImplementedError(
-        f"decoder kind {dec.kind!r} has no frame step in the port "
-        "(BPr is ROADMAP A8)")
+    if dec.kind == "bpr":
+        raise ValueError(f"{preset.name} is a BPr preset: its step also "
+                         "returns the stage-error table, so it runs on "
+                         "make_bpr_step and run_bpr_point (cli bpr)")
+    raise ValueError(f"unknown decoder kind {dec.kind!r}")
+
+
+def _check_llr_dtype(llr_dtype, device: torch.device, engine: str):
+    """The decode kernels (BP, SC, SCL, CA-SCL) take float32 LLRs only: a
+    step that would hand them another dtype raises at once (engine="plain"
+    decodes in any float dtype)."""
+    if (llr_dtype not in (None, torch.float32) and engine == "auto"
+            and device.type == "cuda"):
+        raise ValueError(f"llr_dtype={llr_dtype}: the decode kernels are "
+                         "float32-only; pass engine='plain' to decode in "
+                         "another dtype")
 
 
 def _crc_encode(code, payload):
@@ -232,7 +252,8 @@ def _mc_mode_tables(code, device):
 def make_frame_step(preset: Preset, batch: int, device="cuda",
                     engine: str = "auto", encoder: str = "mxu",
                     channel: str = "threefry", noise: str = "kernel",
-                    tables: Optional[CodeTables] = None) -> Callable:
+                    tables: Optional[CodeTables] = None,
+                    llr_dtype: Optional[torch.dtype] = None) -> Callable:
     """Build the super-batch step: (key, frame_start, sigma) ->
     (errbit, errblock, pm_ties), 0-dim int64 tensors on `device` summed over
     the batch of frames frame_start .. frame_start + batch - 1.
@@ -248,7 +269,11 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
     the JAX package draws off the TPU); errors are counted over all N
     positions against the table's u (frozen positions agree).  tables: the
     code's tables (convert.code_tables_from_numpy), by default built from
-    the preset."""
+    the preset.  llr_dtype: the decoder's message dtype (e.g.
+    torch.bfloat16, the precision study's knob), the channel LLRs cast
+    once before decode; None keeps float32.  The decode kernels are
+    float32-only, so another dtype needs engine="plain" on the card
+    (ValueError otherwise)."""
     code = preset.code
     if channel not in ("threefry", "mc"):
         raise ValueError(f"unknown channel {channel!r}")
@@ -256,6 +281,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
         raise ValueError(f"unknown noise {noise!r}")
     N, K = code.N, code.K
     device = torch.device(device)
+    _check_llr_dtype(llr_dtype, device, engine)
     if tables is None:
         tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
@@ -281,17 +307,155 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
         fidx = frame_start + lanes
         if channel == "mc":
             llr, u = mc_llr(key, frame_start, fidx, sigma)
-            u_hat, ties = decode(llr)
+            u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
             bad = u_hat != u
         else:
             w = _crc_encode(code, payload_from_index(fidx, tables.pn, K))
             llr = frame_llr(encode(w), key, fidx, sigma, engine)
-            u_hat, ties = decode(llr)
+            u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
             bad = u_hat[:, tables.info_set] != w
         pm_ties = no_ties if ties is None else (ties > 0).sum()
         return bad.sum(), bad.any(dim=-1).sum(), pm_ties
 
     return step
+
+
+def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
+                       device="cuda", llr_dtype: Optional[torch.dtype] = None,
+                       engine: str = "auto", encoder: str = "mxu") -> Callable:
+    """The SNR sweep folded into the batch: (key, frame_start, sigmas) ->
+    (errbit, errblock, frames, pm_ties), each [num_snr] int64 on `device`,
+    where frame i runs at sigmas[i % num_snr] (sigmas: float32 [num_snr]
+    on `device`) and is counted under that SNR.  One frame-channel launch a
+    step takes the sigma table (ops/channel.frame_llr); the decoder is
+    make_frame_step's (early-stop BP presets decode with the latched early
+    stop every 4 iterations, not the wave engine).  llr_dtype, engine and
+    encoder as make_frame_step's."""
+    code = preset.code
+    N, K = code.N, code.K
+    device = torch.device(device)
+    _check_llr_dtype(llr_dtype, device, engine)
+    tables = code_tables(code, device)
+    encode = _make_encoder(encoder, tables, N)
+    decode = _make_decoder(preset, tables, engine)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+
+    def per_snr(snr_idx, values):
+        # index_add_, not bincount: bincount reads its input's maximum on
+        # the host, a synchronisation every step on the card
+        out = torch.zeros(num_snr, dtype=torch.int64, device=device)
+        return out.index_add_(0, snr_idx, values.to(torch.int64))
+
+    def step(key, frame_start, sigmas):
+        if tuple(sigmas.shape) != (num_snr,):
+            raise ValueError(f"sigmas must be [{num_snr}], got "
+                             f"{tuple(sigmas.shape)}")
+        _check_frames(frame_start + batch, f"{preset.name} multi-SNR step")
+        fidx = frame_start + lanes
+        snr_idx = fidx % num_snr
+        w = _crc_encode(code, payload_from_index(fidx, tables.pn, K))
+        llr = frame_llr(encode(w), key, fidx, sigmas, engine)
+        u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
+        bad = u_hat[:, tables.info_set] != w
+        tie_frames = (torch.zeros(num_snr, dtype=torch.int64, device=device)
+                      if ties is None else per_snr(snr_idx, ties > 0))
+        return (per_snr(snr_idx, bad.sum(dim=-1)),
+                per_snr(snr_idx, bad.any(dim=-1)),
+                per_snr(snr_idx, torch.ones_like(snr_idx)), tie_frames)
+
+    return step
+
+
+def run_fused_sweep(preset: Preset, snr_points, total_frames: int,
+                    batch: int = 4096, device="cuda", seed: Optional[int] = None,
+                    llr_dtype: Optional[torch.dtype] = None,
+                    engine: str = "auto",
+                    encoder: str = "mxu") -> list[PointResult]:
+    """Fixed-budget sweep with every SNR point fused into each batch
+    (make_multisnr_step): frames 0 .. under the key prng_key(seed), in
+    steps of `batch` until total_frames are issued; one PointResult per
+    SNR point, whose elapsed_s is its share of the wall time by frames.
+    The counters are summed on the device and read once."""
+    seed = preset.sweep.seed if seed is None else seed
+    snrs = list(snr_points)
+    device = torch.device(device)
+    sigmas = torch.tensor([10.0 ** (-s / 20.0) for s in snrs],
+                          dtype=torch.float32, device=device)
+    step = make_multisnr_step(preset, batch, len(snrs), device,
+                              llr_dtype=llr_dtype, engine=engine,
+                              encoder=encoder)
+    key = prng_key(seed, device)
+    total = torch.zeros((4, len(snrs)), dtype=torch.int64, device=device)
+    t0 = time.perf_counter()
+    done = 0
+    while done < total_frames:
+        total += torch.stack(step(key, done, sigmas))
+        done += batch
+    eb, ebl, fr, ties = total.tolist()
+    dt = time.perf_counter() - t0
+    return [PointResult(preset.name, snrs[i], eb[i], ebl[i], fr[i], seed,
+                        dt * fr[i] / max(done, 1), pm_ties=ties[i])
+            for i in range(len(snrs))]
+
+
+def make_bpr_step(preset: Preset, batch: int, device="cuda",
+                  engine: str = "auto") -> Callable:
+    """BPr instrumentation step (ref: BPr_128.c): (key, frame_start, sigma)
+    -> (errbit, errblock, E), errbit and errblock 0-dim int64 and E the
+    per-checkpoint stage-error table [num_checkpoints, n+1] int64 summed
+    over the batch (models/bp.bpr_decode; the reference reports E / run,
+    BPr_128.c:229-255).  Payload, butterfly encode and per-frame threefry
+    channel as make_frame_step's (the frame channel's kernel on the card);
+    no CRC.  engine: "auto" (the wave kernel for the iterations and the
+    frame channel's kernel on a CUDA device) or "plain"."""
+    code, dec = preset.code, preset.decoder
+    N, K = code.N, code.K
+    device = torch.device(device)
+    tables = code_tables(code, device)
+    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+
+    def step(key, frame_start, sigma):
+        _check_frames(frame_start + batch, f"{preset.name} BPr step")
+        fidx = frame_start + lanes
+        payload = payload_from_index(fidx, tables.pn, K)
+        u = scatter_info(payload, tables.info_set, N)
+        llr = frame_llr(polar_encode(u), key, fidx, sigma, engine)
+        u_hat, E = bpr_decode(llr, tables.frozen, u, tables.info_set,
+                              iters=dec.bp_iters, flavor=dec.bp_flavor,
+                              checkpoints=dec.bpr_checkpoints, engine=engine)
+        bad = u_hat[:, tables.info_set] != payload
+        return bad.sum(), bad.any(dim=-1).sum(), E
+
+    return step
+
+
+def run_bpr_point(preset: Preset, snr_db: float, batch: int = 256,
+                  device="cuda", error_blocks: Optional[int] = None,
+                  max_frames: Optional[int] = None, seed: Optional[int] = None,
+                  engine: str = "auto"):
+    """BPr at one SNR point -> (PointResult, E [checkpoints, n+1] int64
+    numpy, summed over frames on the host; divide by frames for the
+    reference's table).  Steps until the error-block target or the frame
+    cap, under the point key fold_in(prng_key(seed), round(100 snr))."""
+    sweep = preset.sweep
+    seed = sweep.seed if seed is None else seed
+    target = sweep.error_blocks if error_blocks is None else error_blocks
+    cap = sweep.max_frames if max_frames is None else max_frames
+    step_fn = make_bpr_step(preset, batch, device, engine=engine)
+    sigma = float(10.0 ** (-snr_db / 20.0))
+    key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
+    res = PointResult(preset.name, snr_db, 0, 0, 0, seed)
+    E = None
+    t0 = time.perf_counter()
+    while res.errblock < target and res.frames < cap:
+        eb, ebl, se = step_fn(key, res.frames, sigma)
+        res.errbit += int(eb)
+        res.errblock += int(ebl)
+        res.frames += batch
+        se = se.cpu().numpy()
+        E = se if E is None else E + se
+    res.elapsed_s = time.perf_counter() - t0
+    return res, E
 
 
 def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
@@ -600,14 +764,26 @@ def run_point(
     seed: Optional[int] = None,
     start_state: Optional[PointResult] = None,
     log: Optional[Callable[[str], None]] = None,
+    sync_every: int = 1,
 ) -> PointResult:
     """Adaptive-length MC for one SNR point: run super-batches until the
     error-block target or the frame cap (ref stop rule, e.g. BP_128.c:168).
 
-    The counters are read after every step, so the frames counted are those
-    of the JAX package's run_point with sync_every=1.  BP early-stop
-    presets run on the wave engine (run_point_waves, each frame retiring at
-    its own convergence wave) unless a step_fn is given."""
+    sync_every: steps per counter read, with the JAX package's meaning.  At
+    1 the counters are read after every step.  At k > 1 a chunk of k steps
+    (frame starts issued, issued + batch, ...) is summed on the device and
+    read one chunk behind (the copy overlaps the next chunk); each chunk
+    counts batch * k frames, the last pending one included, so a point
+    counts whole chunks past the stop.  The default stays 1 on every
+    device: JAX's 8 pays for a TPU dispatch floor of about 24 ms a call,
+    while a step here takes 10-19 ms of card time against 35-55 us of host
+    time a call (PERF.md sections 5 and 6).
+
+    BP early-stop presets run on the wave engine (run_point_waves, each
+    frame retiring at its own convergence wave) unless a step_fn is
+    given."""
+    if sync_every < 1:
+        raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     if (step_fn is None and preset.decoder.kind == "bp"
             and preset.decoder.bp_early_stop):
         return run_point_waves(preset, snr_db, batch=batch, device=device,
@@ -626,17 +802,40 @@ def run_point(
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
     res = start_state or PointResult(preset.name, snr_db, 0, 0, 0, seed)
     t0 = time.perf_counter()
+
+    def take(counts, frames):
+        res.errbit += int(counts[0])
+        res.errblock += int(counts[1])
+        res.pm_ties += int(counts[2])
+        res.frames += frames
+
+    if sync_every == 1:
+        while res.errblock < target and res.frames < cap:
+            take(step_fn(key, res.frames, sigma), batch)
+            if log:
+                log(
+                    f"{preset.name} @ {snr_db:.2f} dB: frames={res.frames} "
+                    f"errblock={res.errblock} bler={res.bler:.3e}"
+                )
+        res.elapsed_s += time.perf_counter() - t0
+        return res
+
+    issued = res.frames  # frames run (res.frames lags one chunk)
+    pending = None
     while res.errblock < target and res.frames < cap:
-        eb, ebl, ties = step_fn(key, res.frames, sigma)
-        res.errbit += int(eb)
-        res.errblock += int(ebl)
-        res.pm_ties += int(ties)
-        res.frames += batch
+        total = 0
+        for i in range(sync_every):
+            total = total + torch.stack(step_fn(key, issued + i * batch, sigma))
+        issued += batch * sync_every
+        if pending is not None:
+            take(pending(), batch * sync_every)
+        pending = _read_later(total)
         if log:
-            log(
-                f"{preset.name} @ {snr_db:.2f} dB: frames={res.frames} "
-                f"errblock={res.errblock} bler={res.bler:.3e}"
-            )
+            log(f"{preset.name} @ {snr_db:.2f} dB: issued={issued} "
+                f"counted={res.frames} errblock={res.errblock} "
+                f"bler={res.bler:.3e}")
+    if pending is not None:
+        take(pending(), batch * sync_every)
     res.elapsed_s += time.perf_counter() - t0
     return res
 
@@ -687,3 +886,41 @@ def run_sweep(
                 f"({res.errblock}/{res.frames})"
             )
     return results
+
+
+def run_multiseed(
+    preset: Preset,
+    seeds,
+    snr_points=None,
+    error_blocks: Optional[int] = None,
+    max_frames: Optional[int] = None,
+    batch: Optional[int] = None,
+    device="cuda",
+    log: Optional[Callable[[str], None]] = None,
+):
+    """The reference's multi-seed replication: run_sweep once per seed.
+    Returns (per_seed {seed: [PointResult]}, averaged [dict]), each averaged
+    record pooling the error counts of every seed at one SNR point (the JAX
+    package's run_multiseed)."""
+    per_seed = {}
+    for seed in seeds:
+        per_seed[seed] = run_sweep(
+            preset, batch=batch, device=device, snr_points=snr_points,
+            error_blocks=error_blocks, max_frames=max_frames, seed=seed,
+            log=log,
+        )
+    averaged = []
+    for i, snr in enumerate(r.snr_db for r in per_seed[seeds[0]]):
+        frames = sum(per_seed[s][i].frames for s in seeds)
+        errblock = sum(per_seed[s][i].errblock for s in seeds)
+        errbit = sum(per_seed[s][i].errbit for s in seeds)
+        averaged.append({
+            "preset": preset.name,
+            "snr_db": snr,
+            "seeds": list(seeds),
+            "frames": frames,
+            "errblock": errblock,
+            "bler": errblock / max(frames, 1),
+            "ber": errbit / max(frames * preset.code.num_info, 1),
+        })
+    return per_seed, averaged

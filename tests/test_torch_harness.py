@@ -123,13 +123,15 @@ def test_jax_checkpoint_resumes_in_port(tmp_path):
 
 
 def test_out_of_slice_paths_raise():
-    """Only BPr (A8) is out of the port: the approximate rate-1 SCL presets
-    build their frame steps; an unknown channel or noise source raises."""
+    """The approximate rate-1 SCL presets build their frame steps; a BPr
+    preset has no frame step (it runs on make_bpr_step, as in the JAX
+    package, whose frame step refuses it); an unknown channel or noise
+    source raises."""
     for name in ("SCL_1024_L8_FASTR1", "SCL_1024_L16_FASTR1"):
         assert callable(th.make_frame_step(tcfg.preset(name), 8, "cpu"))
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="make_bpr_step"):
         th.make_frame_step(tcfg.preset("BPr_128"), 8, "cpu")
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="make_bpr_step"):
         th.run_sweep(tcfg.preset("BPr_128"), device="cpu")
     with pytest.raises(ValueError, match="channel"):
         th.make_frame_step(tcfg.preset("BP_128"), 8, "cpu", channel="awgn")
