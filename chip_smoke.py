@@ -68,7 +68,9 @@
    drain, with cadence 1 and 2, counter noise and given words (state, meta,
    stats); at one iteration or more the planes that an iteration
    overwrites (L[0], R[1..n]) hold NaN before the call.  Then the MC
-   channel at B=8192 in both noise modes; and the fused and unfused
+   channel at B=8192 in both noise modes, and with counter noise from a
+   first row of 4096 and of 2^22 - 4096 (a rank's slice of a global batch;
+   the last one's counters pass 2^32); and the fused and unfused
    engines' per-step counters at B=16384, equal with kernels and plain
    versions and to each other;
 8. drives the wave paths, each with the launch counts at 0: run_point on
@@ -137,7 +139,23 @@
    blocks, each seed's record equal to its own run_sweep; run_point on
    BP_1024 (8192) and SCL_1024_L8_FASTR1 (16384) on a budget of 16 steps
    at sync_every 1, 8, 8, 1: wall time, frames counted, frames/s;
-17. prints the kernels line (each kernel's launches on its main path, its
+17. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
+   ranks on one card) and a one-rank nccl group, each a subprocess of this
+   script (`chip_smoke.py --rank RANK WORLD BACKEND STORE OUT`) with a time
+   limit, while this process runs the same paths alone (each path once
+   as a warmup, then counted, checked and timed): the global
+   counters of two ranks equal one process's at the same global batch on
+   BP_1024's frame step (8192, 2 steps), SCL_1024_L8_FASTR1's (16384, 2
+   steps), BP_1024_ES's fused wave engine (16384, 4 steps and the drain to
+   0) and BP_1024's channel="mc" step (8192, 1 step); every rank launched
+   its path's kernels (rows 1, 6, 2, 5 and the frame channel) on its half;
+   the nccl rank's run_point on BP_1024 (BLER in [0.020, 0.043]) and `cli
+   scale --preset BP_1024` (one record, one card).  Its `multi_rank` line
+   gives the compares, each rank's launches, the host time of a gather and
+   of a sum of three counters on each backend, and the phase's wall time;
+   the `row5` line the MC channel kernel's time beside its 0.0587 ms
+   before the first-row argument (PERF.md section 6);
+18. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
@@ -165,6 +183,7 @@ import io
 import os
 import runpy
 import statistics
+import subprocess
 import sys
 import time
 
@@ -395,6 +414,31 @@ MULTISEED_ERROR_BLOCKS = 50
 SYNC_CASES = (("BP_1024", MAIN_BATCH), ("SCL_1024_L8_FASTR1", 16384))
 SYNC_STEPS = 16
 SYNC_TURNS = (1, 8, 8, 1)
+# the multi-rank phase: two gloo ranks on the one card against one process
+# at the same global batch; (label, preset, global batch, steps, options)
+MR_WORLD = 2
+MR_CASES = (("BP_1024 frame step", "BP_1024", MAIN_BATCH, 2, {}),
+            ("SCL_1024_L8_FASTR1 frame step", "SCL_1024_L8_FASTR1", SCL_BATCH,
+             2, {}),
+            ("BP_1024_ES fused wave engine", WAVE_PRESET, WAVE_BATCH, 4,
+             {"wave_iters": WAVE_ITERS}),
+            ("BP_1024 frame step channel=mc", "BP_1024", MC_CHANNEL_BATCH, 1,
+             {"channel": "mc"}))
+# each case's kernels, launched on every rank: (kernel, launches a step)
+MR_KERNELS = {"BP_1024 frame step": (("bp_decode", 1), ("frame_channel", 1)),
+              "SCL_1024_L8_FASTR1 frame step": (("scl_decode_r1", 1),
+                                                ("frame_channel", 1)),
+              "BP_1024_ES fused wave engine": (("bp_wave_fused", None),
+                                               ("frame_channel", 1)),
+              "BP_1024 frame step channel=mc": (("mc_channel", 1),
+                                                ("bp_decode", 1))}
+MR_TIMEOUT_S = 300  # a rank's whole run, and any collective's wait
+MR_COLLECTIVE_REPS = 200
+# a first row of the MC channel whose counters pass 2^32 (N = 1024)
+MC_WRAP_ROW = (1 << 22) - MC_CHANNEL_BATCH // 2
+# the MC channel kernel's time before its first-row argument (PERF.md
+# section 6)
+ROW5_BEFORE_MS = 0.0587
 # the keys of the JAX package's bench.py line (bench.py:266-289)
 BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "bp_1024_wave_fps",
               "wave_preset", "wave_engine", "wave_itermax",
@@ -1268,15 +1312,20 @@ def phase_wave_compare():
     key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
     k0, k1 = key.tolist()
     m = (torch.arange(B, device=DEVICE) * (p.code.K % 63)) % 63
-    for noise in ("kernel", "words"):
+    # a first row other than 0: a rank's slice of a global batch, the last
+    # one with counters past 2^32
+    for noise, row0 in (("kernel", 0), ("words", 0), ("kernel", B // 2),
+                        ("kernel", MC_WRAP_ROW)):
         bits = (None if noise == "kernel"
                 else counter_bits(k1, k0, 0, B, p.code.N, DEVICE))
         args = (m, xtab, sigma, (k0, k1, k0 ^ k1, B), bits)
-        got = mc_channel(*args, gen_bits=bits is None)
-        want = mc_channel(*args, gen_bits=bits is None, engine="plain")
+        got = mc_channel(*args, gen_bits=bits is None, row0=row0)
+        want = mc_channel(*args, gen_bits=bits is None, engine="plain",
+                          row0=row0)
         torch.cuda.synchronize()
         check(bool(torch.isfinite(want).all()), "non-finite MC channel LLRs")
-        record("mc_channel", {"preset": MAIN_PRESET, "noise": noise},
+        record("mc_channel", {"preset": MAIN_PRESET, "noise": noise,
+                              "row0": row0},
                *frames_equal([(got, want, 0)], B), B)
 
     p = preset(WAVE_PRESET)
@@ -1433,7 +1482,7 @@ def phase_k8_wave_timing(card):
         run()
     p, key, sigma = run.preset, run.key, run.sigma
     tables = code_tables(p.code, DEVICE)
-    state, fidx, _, _, retire = run.carry
+    state, fidx, retire = run.carry[0], run.carry[1], run.carry[4]
     _, B, N = state.shape
 
     def channel():
@@ -2084,6 +2133,209 @@ def phase_sweeps(card):
                                     "turns": turns}})
 
 
+def multi_rank_paths(mesh):
+    """MR_CASES on `mesh` (None: one process on DEVICE), each run twice: a
+    warmup (a rank's first launches load its kernels' libraries), then
+    with the launch counts at 0 just before: {label: {"counters": per step
+    (and, for the wave engine, per drain step until none remains) of the
+    second run, "launches": each of the case's kernels in it, "wall_ms":
+    its host time, synchronised}}."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
+                                                     sigma_from_ebn0_db)
+    from polardecoding_tpu_torch.parallel.harness import (make_frame_step,
+                                                          make_wave_step)
+
+    device = DEVICE if mesh is None else mesh.device
+    sigma = sigma_from_ebn0_db(MAIN_SNR)
+    out = {}
+    for label, name, batch, steps, kw in MR_CASES:
+        p = preset(name)
+        key = fold_in(prng_key(p.sweep.seed, device), int(round(MAIN_SNR * 100)))
+        if label.endswith("wave engine"):
+            init, step, drain = make_wave_step(p, batch, device=device,
+                                               mesh=mesh, **kw)
+
+            def run():
+                carry = init(key, 0, sigma)
+                rows = []
+                for _ in range(steps):
+                    carry, c = step(key, sigma, carry)
+                    rows.append([int(v) for v in c])
+                remaining = batch
+                while remaining > 0:
+                    carry, c = drain(sigma, carry)
+                    rows.append([int(v) for v in c])
+                    remaining = rows[-1][3]
+                    check(len(rows) < steps + 40,
+                          f"{label}: the drain did not end")
+                return rows
+        else:
+            frame_step = make_frame_step(p, batch, device, mesh=mesh, **kw)
+
+            def run():
+                return [[int(v) for v in frame_step(key, s * batch, sigma)]
+                        for s in range(steps)]
+        run()
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        rows = run()
+        torch.cuda.synchronize()
+        out[label] = {"counters": rows, "launches": {
+            k: launches(k) for k, _ in MR_KERNELS[label]},
+            "wall_ms": (time.perf_counter() - t0) * 1e3}
+    return out
+
+
+def collective_ms(mesh):
+    """Host milliseconds of the mesh's all-gather of one rank's three
+    counters and of its sum of three counters, each read back to the host
+    as a step's counters are (mean of MR_COLLECTIVE_REPS after warmup)."""
+    vec = torch.arange(3, dtype=torch.int64, device=mesh.device)
+    times = {}
+    for name, run in (("gather", lambda: mesh.gather(vec).tolist()),
+                      ("sum", lambda: mesh.sum(vec)[0].tolist())):
+        run()
+        mesh.barrier()
+        t0 = time.perf_counter()
+        for _ in range(MR_COLLECTIVE_REPS):
+            run()
+        times[name] = (time.perf_counter() - t0) * 1e3 / MR_COLLECTIVE_REPS
+    return times
+
+
+def rank_worker(rank, world, backend, store, path):
+    """One rank of the multi-rank phase (run as `chip_smoke.py --rank RANK
+    WORLD BACKEND STORE OUT`): join the group through a FileStore, and
+    write as JSON what it counted.  gloo ranks run MR_CASES on the default
+    group's mesh; the nccl rank (a group of one) runs run_point on BP_1024
+    and `cli scale --preset BP_1024`."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from polardecoding_tpu_torch import cli
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.parallel.harness import run_point
+    from polardecoding_tpu_torch.parallel.mesh import data_mesh
+
+    if backend == "nccl":
+        torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=MR_TIMEOUT_S))
+    mesh = data_mesh()
+    check(mesh.group is not None and mesh.size == world
+          and mesh.device.type == "cuda", f"mesh {mesh}")
+    out = {"rank": rank, "backend": backend, "device": str(mesh.device),
+           "collective_ms": collective_ms(mesh)}
+    t0 = time.perf_counter()
+    if backend == "gloo":
+        out["paths"] = multi_rank_paths(mesh)
+    else:
+        reset_counts()
+        res = run_point(preset(MAIN_PRESET), MAIN_SNR, batch=MAIN_BATCH,
+                        error_blocks=MAIN_ERROR_BLOCKS)
+        torch.cuda.synchronize()
+        out["run_point"] = dict(res.to_json(preset(MAIN_PRESET).code.num_info),
+                                launches={"bp_decode": launches("bp_decode")})
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            cli.main(["scale", "--preset", MAIN_PRESET])
+        out["scale"] = json.loads(text.getvalue())
+    out["wall_s"] = time.perf_counter() - t0
+    with open(path, "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def phase_multi_rank(card, row5_ms):
+    """Two gloo ranks on the one card (an NCCL group of two cannot share a
+    card) hold MR_CASES' global counters equal to one process at the same
+    global batch, each rank launching the cases' kernels on its half; a
+    one-rank nccl group runs run_point on BP_1024 (BLER in BLER_RANGE) and
+    `cli scale` at world size 1.  The three ranks run at once as
+    subprocesses, each with MR_TIMEOUT_S, killed on the way out.  Prints
+    the multi_rank line (compares, per-rank launches, collective times,
+    the phase's wall time) and the row5 line (the MC channel kernel's time
+    beside its time before the first-row argument)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep)
+                  if p]))
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [(r, MR_WORLD, "gloo", "gloo") for r in range(MR_WORLD)]
+        jobs.append((0, 1, "nccl", "nccl"))
+        procs = []
+        try:
+            for rank, world, backend, store in jobs:
+                path = os.path.join(tmp, f"{backend}{rank}.json")
+                procs.append((subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--rank",
+                     str(rank), str(world), backend,
+                     os.path.join(tmp, store), path],
+                    cwd=root, env=env, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True), path))
+            single = multi_rank_paths(None)
+            ranks = []
+            for proc, path in procs:
+                out, err = proc.communicate(timeout=MR_TIMEOUT_S)
+                check(proc.returncode == 0,
+                      f"a rank exited {proc.returncode}:\n{out}\n{err[-4000:]}")
+                with open(path) as f:
+                    ranks.append(json.load(f))
+        finally:
+            for proc, _ in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    gloo, nccl = ranks[:MR_WORLD], ranks[MR_WORLD]
+    compares = {}
+    for label, _, batch, steps, _ in MR_CASES:
+        want = single[label]["counters"]
+        got = [r["paths"][label]["counters"] for r in gloo]
+        compares[label] = {"batch": batch, "per_rank": batch // MR_WORLD,
+                           "steps": steps, "one_process": want,
+                           "equal": all(g == want for g in got),
+                           "wall_ms": {"one_process": single[label]["wall_ms"],
+                                       "ranks": [r["paths"][label]["wall_ms"]
+                                                 for r in gloo]}}
+    res = nccl["run_point"]
+    emit({"multi_rank": {
+        "card": card, "backend": "gloo", "ranks": MR_WORLD,
+        "devices": [r["device"] for r in gloo], "compares": compares,
+        "launches": {label: [r["paths"][label]["launches"] for r in gloo]
+                     for label in compares},
+        "collective_ms": {"gloo": [r["collective_ms"] for r in gloo],
+                          "nccl": nccl["collective_ms"]},
+        "rank_wall_s": [r["wall_s"] for r in ranks],
+        "nccl": {"run_point": res, "scale": nccl["scale"]},
+        "wall_s": time.perf_counter() - t0}})
+    for label, c in compares.items():
+        check(c["equal"], f"{label}: two ranks differ from one process")
+        for r in gloo:
+            n = r["paths"][label]["launches"]
+            for kernel, per_step in MR_KERNELS[label]:
+                want = c["steps"] if per_step else None
+                check(n[kernel] > 0 and want in (None, n[kernel]),
+                      f"{label}: rank {r['rank']} launched {kernel} "
+                      f"{n[kernel]} times")
+    check(BLER_RANGE[0] <= res["bler"] <= BLER_RANGE[1]
+          and res["errblock"] >= MAIN_ERROR_BLOCKS
+          and res["launches"]["bp_decode"] > 0, f"nccl run_point {res}")
+    scale = nccl["scale"]
+    check([r["devices"] for r in scale] == [1] and scale[0]["cards"] == 1
+          and scale[0]["frames_per_sec"] > 0 and scale[0]["engine"] == "frame",
+          f"cli scale {scale}")
+    emit({"row5": {"card": card, "kernel": "mc_channel",
+                   "batch": MC_CHANNEL_BATCH, "ms": row5_ms,
+                   "before_ms": ROW5_BEFORE_MS}})
+
+
 def bound(nbytes, ops, int_ops=0):
     """(ms, "bytes" or "operations"): the least time the card could take to
     move nbytes through HBM and do ops operations, int_ops of them on
@@ -2386,6 +2638,7 @@ def main() -> int:
                               max(worst, phase_sigma_table_compare()))
     phase_fused_sweep(card)
     phase_sweeps(card)
+    phase_multi_rank(card, times["mc_channel"][0])
     check("jax" not in sys.modules, "the port imported jax")
 
     p = preset(SCL_PRESET)
@@ -2424,4 +2677,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank"]:
+        rank_worker(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:7])
+        sys.exit(0)
     sys.exit(main())

@@ -2,7 +2,8 @@
 
 The same presets, PN payloads, polar encoder, BPSK/AWGN channel with a
 bit-compatible threefry generator, BP, SC, SCL and CA-SCL decoders and
-adaptive Monte-Carlo sweep harness as the JAX package, running on an NVIDIA
+adaptive Monte-Carlo sweep harness (in one process or several, over
+torch.distributed) as the JAX package, running on an NVIDIA
 Hopper card through hand-written CUDA kernels (csrc/), each beside its
 plain PyTorch version.
 Importing the package needs neither JAX nor nvcc.

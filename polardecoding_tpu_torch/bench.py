@@ -21,9 +21,12 @@ the summed counters; wave steps run in chunks of `steps_per_call` with their
 retired-frame counts summed on the device.
 
 Options of bench.py that name the TPU's hardware generators exit non-zero:
-`--prng rbg` and `--wave-noise hw`.  bench.py's `mesh` argument has no
-counterpart before multi-device (ROADMAP A9).  Without a card the run
-exits non-zero unless `--device cpu` is given.
+`--prng rbg` and `--wave-noise hw`.  bench_step's and bench_waves' `mesh`
+(parallel/mesh.DataMesh; default data_mesh(), the default process group's
+mesh under torch.distributed) splits each global batch over the ranks, as
+bench.py's mesh shards it; the MC wave engine has no mesh path and raises
+on more than one rank.  Without a card the run exits non-zero unless
+`--device cpu` is given.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from polardecoding_tpu_torch.parallel.harness import (
     make_wave_step,
     make_wave_step_mc,
 )
+from polardecoding_tpu_torch.parallel.mesh import data_mesh
 
 BASELINE_FRAMES_PER_SEC = 1e7
 # bench.py's TPU-only choices: the TPU's RngBitGenerator and hardware PRNG
@@ -87,13 +91,16 @@ def _profile(profile_dir, label):
 
 def bench_step(preset_name, batch, snr_db=2.0, iters=5, warmup=2,
                profile_dir=None, encoder="mxu", channel="threefry",
-               device="cuda"):
+               device="cuda", mesh=None):
     """frames/s of the full MC pipeline (gen + encode + channel + decode +
     count) for one preset at one SNR, through make_frame_step.
-    channel="mc" uses the MC channel kernel (ops/channel_kernel.py)."""
-    device = _device(device)
+    channel="mc" uses the MC channel kernel (ops/channel_kernel.py).  Over
+    a mesh, `batch` is global and the rate counts every rank's frames."""
+    mesh = data_mesh(device=_device(device)) if mesh is None else mesh
+    device = mesh.device
     p = preset(preset_name)
-    step = make_frame_step(p, batch, device, encoder=encoder, channel=channel)
+    step = make_frame_step(p, batch, device, encoder=encoder, channel=channel,
+                           mesh=mesh)
     key = prng_key(p.sweep.seed, device)
     sigma = _sigma(snr_db)
     for i in range(warmup):
@@ -112,16 +119,19 @@ def bench_step(preset_name, batch, snr_db=2.0, iters=5, warmup=2,
 def bench_waves(preset_name="BP_1024", batch=16384, snr_db=2.0, wave_iters=8,
                 steps=12, warmup=3, fused=True, encoder="mxu", check_every=0,
                 steps_per_call=8, engine="fused", noise="kernel", cadence=1,
-                itermax=0, device="cuda"):
+                itermax=0, device="cuda", mesh=None):
     """Steady-state retired frames/s of the continuous-batching BP engine:
     engine="fused" (make_wave_step, with `fused`, `encoder` and
-    `check_every`) or "mc" (make_wave_step_mc, with `noise` and `cadence`).
+    `check_every`) or "mc" (make_wave_step_mc, with `noise` and `cadence`;
+    ValueError on a mesh of more than one rank).  Over a mesh, `batch` is
+    global and the rate counts every rank's retirements.
 
     Steps run in chunks of `steps_per_call`, each chunk's retired frames
     summed on the device; `warmup` chunks first, then `steps` chunks timed
     between two synchronisations with one host read.  itermax overrides the
     preset's BP iterMax."""
-    device = _device(device)
+    mesh = data_mesh(device=_device(device)) if mesh is None else mesh
+    device = mesh.device
     if noise == TPU_ONLY["wave_noise"]:
         raise ValueError("noise='hw' is the TPU's hardware PRNG; the card "
                          "draws 'kernel' (counter threefry) or 'threefry'")
@@ -132,11 +142,12 @@ def bench_waves(preset_name="BP_1024", batch=16384, snr_db=2.0, wave_iters=8,
             decoder=dataclasses.replace(p.decoder, bp_iters=itermax))
     if engine == "mc":
         init, step, _ = make_wave_step_mc(p, batch, wave_iters, device,
-                                          noise=noise, cadence=cadence)
+                                          noise=noise, cadence=cadence,
+                                          mesh=mesh)
     elif engine == "fused":
         init, step, _ = make_wave_step(p, batch, wave_iters, device,
                                        fused=fused, encoder=encoder,
-                                       check_every=check_every)
+                                       check_every=check_every, mesh=mesh)
     else:
         raise ValueError(f"unknown wave engine {engine!r}")
     key = prng_key(p.sweep.seed, device)

@@ -6,11 +6,17 @@
   python -m polardecoding_tpu_torch.cli run --preset SCL_1024_L8 --seeds 1 2 3
   python -m polardecoding_tpu_torch.cli bpr --preset BPr_128 --snr 2.0
   python -m polardecoding_tpu_torch.cli bench --preset BP_1024 --batch 4096
+  python -m polardecoding_tpu_torch.cli scale --preset BP_1024
+  torchrun --nproc-per-node <gpus> -m polardecoding_tpu_torch.cli scale --distributed
   python -m polardecoding_tpu_torch.cli presets
 
-`run`, `bpr` and `bench` compute on the card; `--device cpu` runs the plain
-PyTorch versions instead of the CUDA kernels (slow; for checks at small
-sizes).  `run --seeds` replicates the sweep over seeds and prints the
+`run`, `bpr`, `bench` and `scale` compute on the card; `--device cpu` runs
+the plain PyTorch versions instead of the CUDA kernels (slow; for checks
+at small sizes).  Under torchrun with more than one process, `run`, `bpr`
+and `bench` join the process group and split each step's global batch
+(`--batch`) over the ranks; rank 0 alone prints, writes `--out` and the
+checkpoint.  `scale` prints parallel/distributed.scaling_bench's records,
+frames/s at 1, 2, 4, ... ranks (`--distributed` joins the group first).  `run --seeds` replicates the sweep over seeds and prints the
 per-seed records and their pooled average.  `bpr` prints, per SNR point,
 the BLER and the reference's stage-error table E / frames at each
 checkpoint.  `bench` prints {"preset", "frames_per_sec"}: the frame step's
@@ -21,6 +27,26 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _join(device):
+    """Join the process group when torchrun's environment says there is
+    more than one process (gloo for --device cpu, else the default
+    backend); returns whether this process prints (rank 0)."""
+    import torch
+
+    from polardecoding_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed(backend="gloo" if torch.device(device).type == "cpu"
+                     else None)
+    return _lead()
+
+
+def _lead():
+    """Whether this process prints: rank 0, or the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 def _snr_list(args):
@@ -41,6 +67,7 @@ def cmd_run(args):
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.parallel.harness import run_multiseed, run_sweep
 
+    lead = _join(args.device)
     p = preset(args.preset)
     log = (lambda m: print(m, file=sys.stderr)) if args.verbose else None
     if args.seeds:
@@ -69,6 +96,8 @@ def cmd_run(args):
             log=log,
         )
         recs = [r.to_json(p.code.num_info) for r in results]
+    if not lead:
+        return
     text = json.dumps(recs, indent=1)
     if args.out:
         with open(args.out, "w") as f:
@@ -80,6 +109,7 @@ def cmd_bpr(args):
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.parallel.harness import run_bpr_point
 
+    lead = _join(args.device)
     p = preset(args.preset)
     out = {}
     for snr in _snr_list(args) or p.sweep.snr_points():
@@ -97,15 +127,31 @@ def cmd_bpr(args):
             "stage_errors_per_frame": (E / max(res.frames, 1)).round(6).tolist(),
             "checkpoints": list(p.decoder.bpr_checkpoints),
         }
-    print(json.dumps(out, indent=1))
+    if lead:
+        print(json.dumps(out, indent=1))
 
 
 def cmd_bench(args):
     from polardecoding_tpu_torch.bench import bench_step
 
+    lead = _join(args.device)
     fps = bench_step(args.preset, args.batch, device=args.device)
-    print(json.dumps({"preset": args.preset,
-                      "frames_per_sec": round(fps, 1)}))
+    if lead:
+        print(json.dumps({"preset": args.preset,
+                          "frames_per_sec": round(fps, 1)}))
+
+
+def cmd_scale(args):
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.parallel.distributed import scaling_bench
+
+    if args.distributed:
+        _join(args.device)
+    recs = scaling_bench(preset(args.preset),
+                         batch_per_device=args.batch_per_device,
+                         snr_db=args.snr_db, device=args.device)
+    if _lead():
+        print(json.dumps(recs, indent=1))
 
 
 def cmd_presets(args):
@@ -160,6 +206,17 @@ def main(argv=None):
     bp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     bp.set_defaults(fn=cmd_bench)
+
+    sc = sub.add_parser("scale", help="scaling benchmark over ranks")
+    sc.add_argument("--preset", default="BP_1024")
+    sc.add_argument("--batch-per-device", type=int, default=1024)
+    sc.add_argument("--snr-db", type=float, default=2.0)
+    sc.add_argument("--distributed", action="store_true",
+                    help="join the process group from torchrun's environment "
+                         "first")
+    sc.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' runs the plain versions")
+    sc.set_defaults(fn=cmd_scale)
 
     ps = sub.add_parser("presets", help="list named presets")
     ps.set_defaults(fn=cmd_presets)

@@ -60,11 +60,13 @@ def frame_keys(seed_key: torch.Tensor, frame_index: torch.Tensor) -> torch.Tenso
     return fold_in(seed_key, frame_index)
 
 
-def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+def random_bits(keys: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
     """jax.random.bits(key, (n,), uint32) for each key of keys [..., 2]:
     threefry of the counters (0, j) for j < n, the two output words xored.
-    Returns int64 [..., n] holding 32-bit words."""
-    j = torch.arange(n, dtype=torch.int64, device=keys.device)
+    start > 0 gives words start .. start + n - 1 of the longer stream (a
+    rank's slice of a global draw).  Returns int64 [..., n] holding 32-bit
+    words."""
+    j = torch.arange(start, start + n, dtype=torch.int64, device=keys.device)
     y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], torch.zeros_like(j), j)
     return y0 ^ y1
 

@@ -33,14 +33,16 @@ def mc_channel_plain(m: torch.Tensor, x_table: torch.Tensor, sigma,
 
 def mc_channel(m, x_table, sigma, seeds, bits=None, tile: int = 0,
                gen_bits: bool = True, interpret: bool = False,
-               bit_gen: str = "tf32", engine: str = "auto") -> torch.Tensor:
+               bit_gen: str = "tf32", engine: str = "auto",
+               row0: int = 0) -> torch.Tensor:
     """m [B] PN offsets (0..62), x_table [128, N] float32, sigma a float,
     seeds 4 words (k0, k1, k0 ^ k1, step) -> llr [B, N] float32.
 
     gen_bits=True draws the noise from the counter generator at counter
-    (seeds[3], row * N + lane) under the key (seeds[0], seeds[1]), the TPU
-    kernel's semantics, on either device; gen_bits=False takes
-    `bits` [B, N].  bit_gen="hw" (the TPU's own PRNG) raises; tile and
+    (seeds[3], (row0 + b) * N + lane) for row b under the key (seeds[0],
+    seeds[1]), the TPU kernel's semantics, on either device; row0 is the
+    first row's index in a global batch (a rank's slice), 0 for a whole
+    batch.  gen_bits=False takes `bits` [B, N].  bit_gen="hw" (the TPU's own PRNG) raises; tile and
     interpret are TPU knobs, accepted and unused.  The kernel runs on a CUDA
     tensor, the plain version on a CPU tensor or with engine="plain"."""
     if engine not in ("auto", "plain"):
@@ -54,12 +56,13 @@ def mc_channel(m, x_table, sigma, seeds, bits=None, tile: int = 0,
         if gen_bits:
             k0, k1, _, step = (int(s) for s in seeds)
             bits = counter_bits(k0, k1, step, m.shape[0], x_table.shape[1],
-                                m.device)
+                                m.device, row0=row0)
         return mc_channel_plain(m, x_table, sigma, bits)
-    return mc_channel_cuda(m, x_table, sigma, seeds, None if gen_bits else bits)
+    return mc_channel_cuda(m, x_table, sigma, seeds, None if gen_bits else bits,
+                           row0=row0)
 
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_uint32] * 3
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_float] + [ctypes.c_uint32] * 4
              + [ctypes.c_int] * 2)
 
 
@@ -73,11 +76,11 @@ def words32(bits: torch.Tensor) -> torch.Tensor:
 
 
 def mc_channel_cuda(m: torch.Tensor, x_table: torch.Tensor, sigma, seeds,
-                    bits=None) -> torch.Tensor:
-    """The channel on the card with the CUDA kernel: counter noise when bits
-    is None, else the words `bits` [B, N].  Launches on the current stream
-    without synchronising; raises on any input the kernel does not take and
-    when the launch is refused."""
+                    bits=None, row0: int = 0) -> torch.Tensor:
+    """The channel on the card with the CUDA kernel: counter noise of rows
+    row0 .. row0 + B - 1 when bits is None, else the words `bits` [B, N].
+    Launches on the current stream without synchronising; raises on any
+    input the kernel does not take and when the launch is refused."""
     global LAUNCHES
     if m.device.type != "cuda":
         raise ValueError(f"mc_channel_cuda needs a CUDA tensor, got {m.device}")
@@ -89,6 +92,8 @@ def mc_channel_cuda(m: torch.Tensor, x_table: torch.Tensor, sigma, seeds,
     B, N = m.shape[0], x_table.shape[1]
     if N < 1 or N & (N - 1):
         raise ValueError(f"N must be a power of two, got {N}")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
     if bits is not None:
         if tuple(bits.shape) != (B, N) or bits.device != m.device:
             raise ValueError(f"bits must be [{B}, {N}] on m's device")
@@ -101,7 +106,7 @@ def mc_channel_cuda(m: torch.Tensor, x_table: torch.Tensor, sigma, seeds,
     k0, k1, _, step = (int(s) & MASK32 for s in seeds)
     _build.launch("mc_channel", _ARGTYPES, m.device, m32.data_ptr(),
                   xt.data_ptr(), None if bits is None else bits.data_ptr(),
-                  out.data_ptr(), float(sigma), k0, k1, step, B,
-                  N.bit_length() - 1)
+                  out.data_ptr(), float(sigma), k0, k1, step,
+                  row0 & MASK32, B, N.bit_length() - 1)
     LAUNCHES += 1
     return out

@@ -202,12 +202,13 @@ def mc_llr(bits: torch.Tensor, x: torch.Tensor, sigma) -> torch.Tensor:
 
 
 def counter_bits(k0: int, k1: int, c_hi: int, batch: int, N: int,
-                 device=None) -> torch.Tensor:
+                 device=None, row0: int = 0) -> torch.Tensor:
     """The in-kernel generator of the JAX package's MC engines: words
     [batch, N] (int64), the first word of threefry2x32 under key (k0, k1)
-    at counter (c_hi, row * N + lane)."""
-    lanes = (torch.arange(batch, dtype=torch.int64, device=device)[:, None] * N
-             + torch.arange(N, dtype=torch.int64, device=device))
+    at counter (c_hi, row * N + lane), where rows are row0 .. row0 + batch
+    - 1 (row0 > 0: a rank's slice of a global batch)."""
+    rows = torch.arange(row0, row0 + batch, dtype=torch.int64, device=device)
+    lanes = rows[:, None] * N + torch.arange(N, dtype=torch.int64, device=device)
     return threefry2x32(k0 & MASK32, k1 & MASK32, c_hi & MASK32,
                         lanes & MASK32)[0]
 

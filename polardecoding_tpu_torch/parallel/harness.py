@@ -37,7 +37,17 @@ sweep (make_multisnr_step, run_fused_sweep) runs frame i at sigmas[i %
 num_snr], one launch of the frame channel with a sigma table a step, and
 counts per SNR.  run_multiseed replicates a sweep over seeds.
 
-Out of this slice: there is no multi-device path yet (ROADMAP A9).
+Several processes count one sweep through torch.distributed
+(parallel/mesh.py): every step builder takes mesh=, a DataMesh, and splits
+its global batch B into one contiguous slice of B / W frames per rank; its
+step returns the global counters on every rank, so every rank takes the
+same stop decision.  The wave engines' refill order is the global one: a
+step's one all-gather of each rank's counters also gives the retirements
+of the ranks before it.  A step builder with mesh=None is one process on
+`device`; a runner with mesh=None takes data_mesh(), the default process
+group's mesh when torch.distributed is initialised.  Checkpoints and logs
+come from rank 0.  The MC engine (make_wave_step_mc) has no mesh path, as
+in the JAX package: a mesh of more than one rank raises ValueError.
 """
 from __future__ import annotations
 
@@ -94,6 +104,12 @@ from polardecoding_tpu_torch.ops.encode import (
     polar_encode,
     scatter_info,
 )
+from polardecoding_tpu_torch.parallel.mesh import (
+    DataMesh,
+    data_mesh,
+    one_rank,
+    round_up_batch,
+)
 from polardecoding_tpu_torch.utils.pn import PN_PERIOD, pn_sequence
 
 # wave steps run per counter read-back in run_point_waves, as the JAX
@@ -107,7 +123,7 @@ FRAME_LIMIT = 1 << 32
 
 def _check_frames(end: int, what: str):
     """Raise before a frame index reaches FRAME_LIMIT: `end` bounds the
-    indices a step is about to use (exclusive)."""
+    global indices a step is about to use (exclusive)."""
     if end > FRAME_LIMIT:
         raise OverflowError(
             f"{what}: frame indices up to {end - 1} pass 2^32 - 1; a frame's "
@@ -164,6 +180,16 @@ def payload_from_index(frame_index: torch.Tensor, pn: torch.Tensor, K: int):
     m = (frame_index * (K % PN_PERIOD)) % PN_PERIOD
     idx = (m[:, None] + torch.arange(K, device=pn.device)[None, :]) % PN_PERIOD
     return pn[idx]
+
+
+def _step_mesh(mesh: Optional[DataMesh], device) -> DataMesh:
+    """A step builder's mesh: the given one, else one process on device."""
+    return one_rank(device) if mesh is None else mesh
+
+
+def _run_mesh(mesh: Optional[DataMesh], device) -> DataMesh:
+    """A runner's mesh: the given one, else data_mesh() on device."""
+    return data_mesh(device=device) if mesh is None else mesh
 
 
 def code_tables(code, device) -> CodeTables:
@@ -253,10 +279,13 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
                     engine: str = "auto", encoder: str = "mxu",
                     channel: str = "threefry", noise: str = "kernel",
                     tables: Optional[CodeTables] = None,
-                    llr_dtype: Optional[torch.dtype] = None) -> Callable:
+                    llr_dtype: Optional[torch.dtype] = None,
+                    mesh: Optional[DataMesh] = None) -> Callable:
     """Build the super-batch step: (key, frame_start, sigma) ->
     (errbit, errblock, pm_ties), 0-dim int64 tensors on `device` summed over
-    the batch of frames frame_start .. frame_start + batch - 1.
+    the batch of frames frame_start .. frame_start + batch - 1.  With a mesh
+    (on its device), `batch` is the global batch: this rank runs its slice
+    and the counters are summed over the ranks.
 
     key: the point's key from ops/channel (int64 [2]); sigma: a float.
     engine: "auto" (the decoder's and the channel's CUDA kernels for a
@@ -280,26 +309,29 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
     if noise not in ("kernel", "threefry"):
         raise ValueError(f"unknown noise {noise!r}")
     N, K = code.N, code.K
-    device = torch.device(device)
+    mesh = _step_mesh(mesh, device)
+    device = mesh.device
+    first, b = mesh.lanes(batch)
     _check_llr_dtype(llr_dtype, device, engine)
     if tables is None:
         tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
     decode = _make_decoder(preset, tables, engine)
-    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
     no_ties = torch.zeros((), dtype=torch.int64, device=device)
     if channel == "mc":
         utab, xtab = _mc_mode_tables(code, device)
 
     def mc_llr(key, frame_start, fidx, sigma):
+        # this rank's rows of the global batch's noise
         m = (fidx * (K % PN_PERIOD)) % PN_PERIOD
         k0, k1 = key.tolist()
         bits = None
         if noise == "threefry":
-            bits = random_bits(fold_in(key.to(device), frame_start),
-                               batch * N).reshape(batch, N)
+            bits = random_bits(fold_in(key.to(device), frame_start), b * N,
+                               start=first * N).reshape(b, N)
         llr = mc_channel(m, xtab, sigma, (k0, k1, k0 ^ k1, frame_start), bits,
-                         gen_bits=bits is None, engine=engine)
+                         gen_bits=bits is None, engine=engine, row0=first)
         return llr, utab[m].to(torch.int8)
 
     def step(key, frame_start, sigma):
@@ -315,30 +347,33 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
             u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
             bad = u_hat[:, tables.info_set] != w
         pm_ties = no_ties if ties is None else (ties > 0).sum()
-        return bad.sum(), bad.any(dim=-1).sum(), pm_ties
+        return mesh.sum(bad.sum(), bad.any(dim=-1).sum(), pm_ties)
 
     return step
 
 
 def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
                        device="cuda", llr_dtype: Optional[torch.dtype] = None,
-                       engine: str = "auto", encoder: str = "mxu") -> Callable:
+                       engine: str = "auto", encoder: str = "mxu",
+                       mesh: Optional[DataMesh] = None) -> Callable:
     """The SNR sweep folded into the batch: (key, frame_start, sigmas) ->
     (errbit, errblock, frames, pm_ties), each [num_snr] int64 on `device`,
     where frame i runs at sigmas[i % num_snr] (sigmas: float32 [num_snr]
     on `device`) and is counted under that SNR.  One frame-channel launch a
     step takes the sigma table (ops/channel.frame_llr); the decoder is
     make_frame_step's (early-stop BP presets decode with the latched early
-    stop every 4 iterations, not the wave engine).  llr_dtype, engine and
-    encoder as make_frame_step's."""
+    stop every 4 iterations, not the wave engine).  llr_dtype, engine,
+    encoder and mesh as make_frame_step's."""
     code = preset.code
     N, K = code.N, code.K
-    device = torch.device(device)
+    mesh = _step_mesh(mesh, device)
+    device = mesh.device
+    first, b = mesh.lanes(batch)
     _check_llr_dtype(llr_dtype, device, engine)
     tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
     decode = _make_decoder(preset, tables, engine)
-    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
 
     def per_snr(snr_idx, values):
         # index_add_, not bincount: bincount reads its input's maximum on
@@ -359,9 +394,9 @@ def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
         bad = u_hat[:, tables.info_set] != w
         tie_frames = (torch.zeros(num_snr, dtype=torch.int64, device=device)
                       if ties is None else per_snr(snr_idx, ties > 0))
-        return (per_snr(snr_idx, bad.sum(dim=-1)),
-                per_snr(snr_idx, bad.any(dim=-1)),
-                per_snr(snr_idx, torch.ones_like(snr_idx)), tie_frames)
+        return mesh.sum(per_snr(snr_idx, bad.sum(dim=-1)),
+                        per_snr(snr_idx, bad.any(dim=-1)),
+                        per_snr(snr_idx, torch.ones_like(snr_idx)), tie_frames)
 
     return step
 
@@ -369,21 +404,23 @@ def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
 def run_fused_sweep(preset: Preset, snr_points, total_frames: int,
                     batch: int = 4096, device="cuda", seed: Optional[int] = None,
                     llr_dtype: Optional[torch.dtype] = None,
-                    engine: str = "auto",
-                    encoder: str = "mxu") -> list[PointResult]:
+                    engine: str = "auto", encoder: str = "mxu",
+                    mesh: Optional[DataMesh] = None) -> list[PointResult]:
     """Fixed-budget sweep with every SNR point fused into each batch
     (make_multisnr_step): frames 0 .. under the key prng_key(seed), in
-    steps of `batch` until total_frames are issued; one PointResult per
-    SNR point, whose elapsed_s is its share of the wall time by frames.
-    The counters are summed on the device and read once."""
+    steps of `batch` (global, over the mesh's ranks) until total_frames are
+    issued; one PointResult per SNR point, whose elapsed_s is its share of
+    the wall time by frames.  The counters are summed on the device and
+    read once."""
     seed = preset.sweep.seed if seed is None else seed
     snrs = list(snr_points)
-    device = torch.device(device)
+    mesh = _run_mesh(mesh, device)
+    device = mesh.device
     sigmas = torch.tensor([10.0 ** (-s / 20.0) for s in snrs],
                           dtype=torch.float32, device=device)
     step = make_multisnr_step(preset, batch, len(snrs), device,
                               llr_dtype=llr_dtype, engine=engine,
-                              encoder=encoder)
+                              encoder=encoder, mesh=mesh)
     key = prng_key(seed, device)
     total = torch.zeros((4, len(snrs)), dtype=torch.int64, device=device)
     t0 = time.perf_counter()
@@ -399,7 +436,8 @@ def run_fused_sweep(preset: Preset, snr_points, total_frames: int,
 
 
 def make_bpr_step(preset: Preset, batch: int, device="cuda",
-                  engine: str = "auto") -> Callable:
+                  engine: str = "auto",
+                  mesh: Optional[DataMesh] = None) -> Callable:
     """BPr instrumentation step (ref: BPr_128.c): (key, frame_start, sigma)
     -> (errbit, errblock, E), errbit and errblock 0-dim int64 and E the
     per-checkpoint stage-error table [num_checkpoints, n+1] int64 summed
@@ -407,12 +445,15 @@ def make_bpr_step(preset: Preset, batch: int, device="cuda",
     BPr_128.c:229-255).  Payload, butterfly encode and per-frame threefry
     channel as make_frame_step's (the frame channel's kernel on the card);
     no CRC.  engine: "auto" (the wave kernel for the iterations and the
-    frame channel's kernel on a CUDA device) or "plain"."""
+    frame channel's kernel on a CUDA device) or "plain"; mesh as
+    make_frame_step's."""
     code, dec = preset.code, preset.decoder
     N, K = code.N, code.K
-    device = torch.device(device)
+    mesh = _step_mesh(mesh, device)
+    device = mesh.device
+    first, b = mesh.lanes(batch)
     tables = code_tables(code, device)
-    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
 
     def step(key, frame_start, sigma):
         _check_frames(frame_start + batch, f"{preset.name} BPr step")
@@ -424,7 +465,7 @@ def make_bpr_step(preset: Preset, batch: int, device="cuda",
                               iters=dec.bp_iters, flavor=dec.bp_flavor,
                               checkpoints=dec.bpr_checkpoints, engine=engine)
         bad = u_hat[:, tables.info_set] != payload
-        return bad.sum(), bad.any(dim=-1).sum(), E
+        return mesh.sum(bad.sum(), bad.any(dim=-1).sum(), E)
 
     return step
 
@@ -432,16 +473,19 @@ def make_bpr_step(preset: Preset, batch: int, device="cuda",
 def run_bpr_point(preset: Preset, snr_db: float, batch: int = 256,
                   device="cuda", error_blocks: Optional[int] = None,
                   max_frames: Optional[int] = None, seed: Optional[int] = None,
-                  engine: str = "auto"):
+                  engine: str = "auto", mesh: Optional[DataMesh] = None):
     """BPr at one SNR point -> (PointResult, E [checkpoints, n+1] int64
     numpy, summed over frames on the host; divide by frames for the
-    reference's table).  Steps until the error-block target or the frame
-    cap, under the point key fold_in(prng_key(seed), round(100 snr))."""
+    reference's table).  Steps of the global `batch` until the error-block
+    target or the frame cap, under the point key fold_in(prng_key(seed),
+    round(100 snr))."""
     sweep = preset.sweep
     seed = sweep.seed if seed is None else seed
     target = sweep.error_blocks if error_blocks is None else error_blocks
     cap = sweep.max_frames if max_frames is None else max_frames
-    step_fn = make_bpr_step(preset, batch, device, engine=engine)
+    mesh = _run_mesh(mesh, device)
+    device = mesh.device
+    step_fn = make_bpr_step(preset, batch, device, engine=engine, mesh=mesh)
     sigma = float(10.0 ** (-snr_db / 20.0))
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
     res = PointResult(preset.name, snr_db, 0, 0, 0, seed)
@@ -461,7 +505,8 @@ def run_bpr_point(preset: Preset, snr_db: float, batch: int = 256,
 def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
                    device="cuda", fused: bool = True, encoder: str = "mxu",
                    check_every: int = 0, engine: str = "auto",
-                   tables: Optional[CodeTables] = None) -> tuple:
+                   tables: Optional[CodeTables] = None,
+                   mesh: Optional[DataMesh] = None) -> tuple:
     """Continuous-batching BP stepper (the early-stop engine) -> (init,
     step, drain):
 
@@ -485,7 +530,17 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
     (fused only) also checks inside the wave and latches a frame at its
     first passing check.  engine: "auto" or "plain", as make_frame_step's.
     The carry's state is updated in place on the card: do not reuse a carry
-    after stepping it."""
+    after stepping it.
+
+    With a mesh, `batch` is the global batch and this rank holds the global
+    slots first .. first + batch / W - 1; the counters are global.  A step's
+    one all-gather of every rank's (errbit, errblock, frames) gives both the
+    global counters and the retirements of the ranks before this one, which
+    offset its refills: the refill order is the global slot order, as the
+    JAX package's cumsum over the sharded batch.  The fused engine refills
+    at the next step's head, so its carry also holds this rank's first
+    refill index.  drain's `remaining` is global, so every rank leaves the
+    drain loop at the same step."""
     code, dec = preset.code, preset.decoder
     if dec.kind != "bp":
         raise ValueError("wave stepping is a BP engine")
@@ -493,11 +548,13 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
         raise ValueError("check_every needs the fused wave kernel")
     N, K = code.N, code.K
     iter_max = dec.bp_iters
-    device = torch.device(device)
+    mesh = _step_mesh(mesh, device)
+    device = mesh.device
+    first, b = mesh.lanes(batch)
     if tables is None:
         tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
-    lanes = torch.arange(batch, dtype=torch.int64, device=device)
+    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
     wave = dict(iters=wave_iters, flavor=dec.bp_flavor, engine=engine)
 
     def fresh_llr(key, fidx, sigma):
@@ -505,54 +562,68 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
         return frame_llr(x, key, fidx, sigma, engine)
 
     def count(u_hat, fidx, retire):
+        """This rank's retirees' counters, exchanged -> (the global (errbit,
+        errblock, frames), the retirees of the ranks before this one)."""
         payload = payload_from_index(fidx.clamp_min(0), tables.pn, K)
         bad = (u_hat[:, tables.info_set] != payload) & retire[:, None]
-        return bad.sum(), bad.any(dim=-1).sum(), retire.sum()
+        out = (bad.sum(), bad.any(dim=-1).sum(), retire.sum())
+        if mesh.group is None:
+            return out, 0
+        every = mesh.gather(torch.stack(out))
+        return tuple(every.sum(dim=0)), every[:mesh.rank, 2].sum()
 
-    def refill(fidx, next_fidx, retire):
+    def refill(fidx, start, retire):
+        # the retirees take start, start + 1, ... in slot order
         rank = torch.cumsum(retire.to(torch.int64), dim=0) - 1
-        return (torch.where(retire, next_fidx + rank, fidx),
-                next_fidx + retire.sum())
+        return torch.where(retire, start + rank, fidx)
 
     def drain_count(u_hat, fidx, done, iters_done):
         retire = (done | (iters_done >= iter_max)) & (fidx >= 0)
-        eb, ebl, fr = count(u_hat, fidx, retire)
+        payload = payload_from_index(fidx.clamp_min(0), tables.pn, K)
+        bad = (u_hat[:, tables.info_set] != payload) & retire[:, None]
         fidx = torch.where(retire, -1, fidx)
-        return fidx, (eb, ebl, fr, (fidx >= 0).sum())
+        return fidx, mesh.sum(bad.sum(), bad.any(dim=-1).sum(), retire.sum(),
+                              (fidx >= 0).sum())
 
-    zeros = torch.zeros(batch, dtype=torch.int64, device=device)
+    zeros = torch.zeros(b, dtype=torch.int64, device=device)
     if fused:
         def init_fused(key, frame_start, sigma):
             # every slot retired: the first step's kernel merge fills it
-            state = wave_init_state(torch.zeros((batch, N), device=device),
+            # with this rank's global lanes
+            state = wave_init_state(torch.zeros((b, N), device=device),
                                     tables.frozen)
-            return (state, zeros, zeros, zeros[0] + frame_start,
-                    torch.ones(batch, dtype=torch.bool, device=device))
+            return (state, zeros, zeros, zeros[0] + frame_start + batch,
+                    torch.ones(b, dtype=torch.bool, device=device),
+                    zeros[0] + frame_start + first)
 
         def step_fused(key, sigma, carry):
-            state, fidx, iters_done, next_fidx, retire = carry
-            fidx, next_fidx = refill(fidx, next_fidx, retire)
+            state, fidx, iters_done, next_fidx, retire, start = carry
+            fidx = refill(fidx, start, retire)
             iters_done = torch.where(retire, 0, iters_done)
             state, u_hat, done = bp_wave_fused(
                 state, fresh_llr(key, fidx, sigma), retire,
                 check_every=check_every, **wave)
             iters_done = iters_done + wave_iters
             retire = done | (iters_done >= iter_max)
-            return ((state, fidx, iters_done, next_fidx, retire),
-                    count(u_hat, fidx, retire))
+            out, before = count(u_hat, fidx, retire)
+            # the next head's refills start past the retirees of the ranks
+            # before this one
+            start = next_fidx + before
+            return ((state, fidx, iters_done, next_fidx + out[2], retire,
+                     start), out)
 
         def drain_fused(sigma, carry):
             # the pending retirees were counted by the last step: their
             # slots die instead of refilling
-            state, fidx, iters_done, next_fidx, retire = carry
+            state, fidx, iters_done, next_fidx, retire, start = carry
             fidx = torch.where(retire, -1, fidx)
             no_retire = torch.zeros_like(retire)
             state, u_hat, done = bp_wave_fused(
-                state, torch.zeros((batch, N), device=device), no_retire,
+                state, torch.zeros((b, N), device=device), no_retire,
                 check_every=check_every, **wave)
             iters_done = iters_done + wave_iters
             fidx, out = drain_count(u_hat, fidx, done, iters_done)
-            return (state, fidx, iters_done, next_fidx, no_retire), out
+            return (state, fidx, iters_done, next_fidx, no_retire, start), out
 
         return init_fused, step_fused, drain_fused
 
@@ -567,8 +638,9 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
         iters_done = iters_done + wave_iters
         u_hat, done = wave_decide(state, tables.frozen)
         retire = done | (iters_done >= iter_max)
-        out = count(u_hat, fidx, retire)
-        fidx, next_fidx = refill(fidx, next_fidx, retire)
+        out, before = count(u_hat, fidx, retire)
+        fidx = refill(fidx, next_fidx + before, retire)
+        next_fidx = next_fidx + out[2]
         # R[0] is the same frozen row in every slot, so the merge is the
         # JAX package's where(retire, wave_init_state(llr), state)
         state = wave_merge(state, fresh_llr(key, fidx, sigma), retire)
@@ -589,7 +661,8 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
 def make_wave_step_mc(preset: Preset, batch: int, wave_iters: int = 8,
                       device="cuda", noise: str = "kernel", spares: int = 0,
                       cadence: int = 1, tile: int = 0,
-                      engine: str = "auto") -> tuple:
+                      engine: str = "auto",
+                      mesh: Optional[DataMesh] = None) -> tuple:
     """In-kernel-MC continuous-batching BP stepper (models/bp.bp_wave_mc) ->
     (init, step, drain) with make_wave_step's signatures.
 
@@ -603,8 +676,14 @@ def make_wave_step_mc(preset: Preset, batch: int, wave_iters: int = 8,
     draws the TPU kernel's counter words under the run key, "threefry"
     jax.random.bits under fold_in(run key, step), what the JAX package
     draws off the TPU; either on either device.  tile is a TPU knob,
-    accepted and unused; engine: "auto" or "plain"."""
+    accepted and unused; engine: "auto" or "plain".  There is no mesh path,
+    as in the JAX package: a mesh of more than one rank raises ValueError,
+    one of one rank runs on its device."""
     code, dec = preset.code, preset.decoder
+    if mesh is not None and mesh.size > 1:
+        raise ValueError("the MC wave engine has no mesh path (as in the JAX "
+                         "package): run it on one rank, or use the fused "
+                         "engine")
     if dec.kind != "bp":
         raise ValueError("wave stepping is a BP engine")
     if noise not in ("kernel", "threefry"):
@@ -612,7 +691,7 @@ def make_wave_step_mc(preset: Preset, batch: int, wave_iters: int = 8,
     N, K = code.N, code.K
     if spares == 0:
         spares = max(2, wave_iters // 8)
-    device = torch.device(device)
+    device = _step_mesh(mesh, device).device
     frozen = torch.as_tensor(code_frozen_mask(code), device=device)
     utab, xtab = mc_tables(code_info_set(code), K, N, device)
     kw = dict(iters=wave_iters, flavor=dec.bp_flavor, iter_max=dec.bp_iters,
@@ -685,29 +764,39 @@ def run_point_waves(
     noise: str = "kernel",
     cadence: int = 1,
     spares: int = 0,
+    mesh: Optional[DataMesh] = None,
 ) -> PointResult:
     """Adaptive MC at one SNR point on the continuous-batching BP engine:
     engine="fused" (make_wave_step, with `fused` and `check_every`) or "mc"
-    (make_wave_step_mc, with `noise`, `cadence` and `spares`).
+    (make_wave_step_mc, with `noise`, `cadence` and `spares`; one rank
+    only).
 
     The steps run in chunks of SYNC_EVERY; a chunk's summed counters are
     read while the next chunk runs, so the stop check lags one chunk (the
     frames run meanwhile are counted).  Then the frames in flight are
     drained, so that slow frames are not censored.  A point counts the same
-    frames as the JAX package's run_point_waves."""
+    frames as the JAX package's run_point_waves.  `batch` is global
+    (default batch_per_device per rank of the mesh); the counters every
+    decision reads are global, so every rank stops and drains at the same
+    step."""
     sweep = preset.sweep
     seed = sweep.seed if seed is None else seed
     target = sweep.error_blocks if error_blocks is None else error_blocks
     cap = sweep.max_frames if max_frames is None else max_frames
+    mesh = _run_mesh(mesh, device)
+    device = mesh.device
     if batch is None:
-        batch = sweep.batch_per_device
+        batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
+    if mesh.rank:
+        log = None
     if engine == "mc":
         init, step, drain = make_wave_step_mc(preset, batch, wave_iters, device,
                                               noise=noise, cadence=cadence,
-                                              spares=spares)
+                                              spares=spares, mesh=mesh)
     elif engine == "fused":
         init, step, drain = make_wave_step(preset, batch, wave_iters, device,
-                                           fused=fused, check_every=check_every)
+                                           fused=fused, check_every=check_every,
+                                           mesh=mesh)
     else:
         raise ValueError(f"unknown wave engine {engine!r}")
     sigma = float(10.0 ** (-snr_db / 20.0))
@@ -765,6 +854,7 @@ def run_point(
     start_state: Optional[PointResult] = None,
     log: Optional[Callable[[str], None]] = None,
     sync_every: int = 1,
+    mesh: Optional[DataMesh] = None,
 ) -> PointResult:
     """Adaptive-length MC for one SNR point: run super-batches until the
     error-block target or the frame cap (ref stop rule, e.g. BP_128.c:168).
@@ -781,22 +871,28 @@ def run_point(
 
     BP early-stop presets run on the wave engine (run_point_waves, each
     frame retiring at its own convergence wave) unless a step_fn is
-    given."""
+    given.  `batch` is global (default batch_per_device per rank of the
+    mesh), a given step_fn must be built on the same mesh, and only rank 0
+    logs."""
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
+    mesh = _run_mesh(mesh, device)
     if (step_fn is None and preset.decoder.kind == "bp"
             and preset.decoder.bp_early_stop):
-        return run_point_waves(preset, snr_db, batch=batch, device=device,
+        return run_point_waves(preset, snr_db, batch=batch, mesh=mesh,
                                error_blocks=error_blocks, max_frames=max_frames,
                                seed=seed, start_state=start_state, log=log)
+    device = mesh.device
     sweep = preset.sweep
     seed = sweep.seed if seed is None else seed
     target = sweep.error_blocks if error_blocks is None else error_blocks
     cap = sweep.max_frames if max_frames is None else max_frames
     if batch is None:
-        batch = sweep.batch_per_device
+        batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
     if step_fn is None:
-        step_fn = make_frame_step(preset, batch, device)
+        step_fn = make_frame_step(preset, batch, device, mesh=mesh)
+    if mesh.rank:
+        log = None
 
     sigma = float(10.0 ** (-snr_db / 20.0))
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
@@ -850,16 +946,23 @@ def run_sweep(
     seed: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
     log: Optional[Callable[[str], None]] = None,
+    mesh: Optional[DataMesh] = None,
 ) -> list[PointResult]:
     """Full SNR sweep with optional JSON checkpointing: each finished point
     is written, and a rerun resumes every point from its record (a
-    checkpoint of either package)."""
+    checkpoint of either package).  Over a mesh every rank reads the
+    checkpoint, rank 0 alone writes it and logs, and the ranks meet at a
+    barrier after each write."""
+    mesh = _run_mesh(mesh, device)
     if batch is None:
-        batch = preset.sweep.batch_per_device
+        batch = round_up_batch(preset.sweep.batch_per_device * mesh.size, mesh)
     # early-stop BP presets take run_point's wave-engine path
     wave_es = preset.decoder.kind == "bp" and preset.decoder.bp_early_stop
-    step_fn = None if wave_es else make_frame_step(preset, batch, device)
+    step_fn = None if wave_es else make_frame_step(preset, batch, mesh.device,
+                                                   mesh=mesh)
     points = preset.sweep.snr_points() if snr_points is None else list(snr_points)
+    if mesh.rank:
+        log = None
 
     done: dict[float, PointResult] = {}
     if checkpoint_path and os.path.exists(checkpoint_path):
@@ -870,16 +973,18 @@ def run_sweep(
     results = []
     for snr in points:
         res = run_point(
-            preset, snr, batch=batch, device=device, step_fn=step_fn,
+            preset, snr, batch=batch, mesh=mesh, step_fn=step_fn,
             error_blocks=error_blocks, max_frames=max_frames, seed=seed,
             start_state=done.get(snr), log=log,
         )
         results.append(res)
         if checkpoint_path:
-            with open(checkpoint_path, "w") as f:
-                json.dump(
-                    [r.to_json(preset.code.num_info) for r in results], f, indent=1
-                )
+            if mesh.rank == 0:
+                with open(checkpoint_path, "w") as f:
+                    json.dump(
+                        [r.to_json(preset.code.num_info) for r in results], f,
+                        indent=1)
+            mesh.barrier()
         if log:
             log(
                 f"DONE {preset.name} @ {snr:.2f} dB: BLER={res.bler:.4e} "
@@ -897,15 +1002,17 @@ def run_multiseed(
     batch: Optional[int] = None,
     device="cuda",
     log: Optional[Callable[[str], None]] = None,
+    mesh: Optional[DataMesh] = None,
 ):
     """The reference's multi-seed replication: run_sweep once per seed.
     Returns (per_seed {seed: [PointResult]}, averaged [dict]), each averaged
     record pooling the error counts of every seed at one SNR point (the JAX
     package's run_multiseed)."""
+    mesh = _run_mesh(mesh, device)
     per_seed = {}
     for seed in seeds:
         per_seed[seed] = run_sweep(
-            preset, batch=batch, device=device, snr_points=snr_points,
+            preset, batch=batch, mesh=mesh, snr_points=snr_points,
             error_blocks=error_blocks, max_frames=max_frames, seed=seed,
             log=log,
         )

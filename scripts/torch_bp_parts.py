@@ -178,7 +178,7 @@ def wave_cases(sigma):
     carry = init(key, 0, sigma)
     for _ in range(WAVE_WARMUP):
         carry, _ = step(key, sigma, carry)
-    state0, fidx, _, _, retire = carry
+    state0, fidx, retire = carry[0], carry[1], carry[4]
     tables = code_tables(p.code, "cuda")
     llr = awgn_llr(encode_info_mxu(payload_from_index(fidx, tables.pn, p.code.K),
                                    tables.g_rows), frame_keys(key, fidx), sigma)

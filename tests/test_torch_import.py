@@ -524,3 +524,82 @@ def test_microbench_kernel_equals_plain_on_card(kind, L, rows):
         torch.cuda.synchronize()
         assert mk.LAUNCHES == launches + 1
         assert _same_bits(got, want)
+
+
+_IMPORT_MESH = _IMPORT_ALL.split("import polardecoding_tpu_torch as pkg")[0] + """
+import polardecoding_tpu_torch.parallel.mesh
+import polardecoding_tpu_torch.parallel.distributed
+print(sorted(m for m in sys.modules if blocked(m)))
+"""
+
+
+def test_mesh_and_distributed_import_without_jax():
+    """The multi-process modules (torch.distributed) import no JAX."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_MESH], cwd=REPO,
+                         env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.cuda
+def test_one_nccl_rank_equals_no_mesh_on_card(tmp_path):
+    """On a card: a one-rank nccl group's mesh runs every collective
+    through NCCL, and BP_128's frame-step counters equal those without a
+    mesh."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the collectives run through NCCL")
+    import datetime
+
+    import torch.distributed as dist
+
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.channel import prng_key
+    from polardecoding_tpu_torch.parallel.harness import make_frame_step
+    from polardecoding_tpu_torch.parallel.mesh import data_mesh
+
+    p, key, sigma = preset("BP_128"), prng_key(7, "cuda"), 0.8
+    want = [[int(v) for v in make_frame_step(p, 256, "cuda")(key, s, sigma)]
+            for s in (0, 256)]
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0,
+                            timeout=datetime.timedelta(seconds=120))
+    try:
+        mesh = data_mesh()
+        assert mesh.group is not None and mesh.device.type == "cuda"
+        step = make_frame_step(p, 256, mesh=mesh)
+        got = [[int(v) for v in step(key.to(mesh.device), s, sigma)]
+               for s in (0, 256)]
+        mesh.barrier()
+    finally:
+        dist.destroy_process_group()
+    assert got == want and want[0][1] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,row0", [(1024, 128), (1024, (1 << 22) - 100),
+                                    (64, 3)])
+def test_mc_channel_first_row_equals_plain_on_card(N, row0):
+    """On a card: the MC channel at a first row other than 0 (a rank's slice
+    of a global batch; at N=1024 also one whose counters pass 2^32)
+    bit-equal to the plain version's, and equal to the rows of a launch
+    from row 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.bp import mc_tables
+    from polardecoding_tpu_torch.ops import channel_kernel
+    from polardecoding_tpu_torch.utils.sequences import info_set
+
+    B = 256
+    _, xtab = mc_tables(info_set(N, N // 2), N // 2, N, "cuda")
+    m = (torch.arange(B, device="cuda") * 8) % 63
+    seeds = (1, 2, 3, 4096)
+    got = channel_kernel.mc_channel(m, xtab, 0.8, seeds, row0=row0)
+    want = channel_kernel.mc_channel(m, xtab, 0.8, seeds, row0=row0,
+                                     engine="plain")
+    torch.cuda.synchronize()
+    assert _same_bits(got, want)
+    if row0 < B:
+        whole = channel_kernel.mc_channel(torch.cat([m[:row0], m]), xtab, 0.8,
+                                          seeds)
+        assert _same_bits(got, whole[row0:])
