@@ -139,7 +139,25 @@
    blocks, each seed's record equal to its own run_sweep; run_point on
    BP_1024 (8192) and SCL_1024_L8_FASTR1 (16384) on a budget of 16 steps
    at sync_every 1, 8, 8, 1: wall time, frames counted, frames/s;
-17. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
+17. golden mode, the frames of the C reference at matched seeds, decoded by
+   the kernels (rows 1 and 6) through bp_decode_auto, sc_decode_auto,
+   scl_decode_auto (L=8) and cascl_decode (L=8), each call with the launch
+   counts at 0 (its kernel once, no other): the five C frame dumps of
+   tests/golden (N=128, K=64, 1.0 dB, seed 1024, 8 frames; SC, SC_fag,
+   SCL, CA-SCL with CRC-6, BP at 100 iterations), whose payload U and
+   float64 y the port reproduces bit for bit (utils/rng.golden_noise,
+   utils/pn.payload_bits_host, utils/gf2.encode_dense) and whose decoded H
+   the kernels give on every frame (BP: on the 5 frames C decoded right);
+   then the port's native C engine (native.py, native/golden_ref.c built
+   with cc into polardecoding_tpu_torch/_build/) at N=1024, K=512, 2.0 dB,
+   seed 1024: its noise equal to golden_noise on 64 frames, and frames
+   whose decoded info bits differ from C's: SC 0 of 8192, SCL 0 of 1024,
+   CA-SCL (CRC-24) 0 of 512, BP at most 1 of 256, with 696, 9, 1 and 6
+   error blocks on both sides; and `cli analyze --tool bpdega` at N=128,
+   2.0 dB within 2e-6 of BPDEGA_128.c's BLER.  Its `golden` line gives the
+   counts, the launches, the C engine's and golden_noise's host seconds
+   and each decode's milliseconds;
+18. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
    ranks on one card) and a one-rank nccl group, each a subprocess of this
    script (`chip_smoke.py --rank RANK WORLD BACKEND STORE OUT`) with a time
    limit, while this process runs the same paths alone (each path once
@@ -155,7 +173,7 @@
    of a sum of three counters on each backend, and the phase's wall time;
    the `row5` line the MC channel kernel's time beside its 0.0587 ms
    before the first-row argument (PERF.md section 6);
-18. prints the kernels line (each kernel's launches on its main path, its
+19. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
@@ -187,6 +205,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 from polardecoding_tpu_torch.utils.card import card_line, cuda_ms, queued_ms
@@ -444,6 +463,31 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "bp_1024_wave_fps",
               "wave_preset", "wave_engine", "wave_itermax",
               "bp_1024_fixed100_fps", "scl_preset", "scl_fps",
               "scl_1024_l8_fps", "vs_baseline_fixed_iters"}
+
+
+# golden mode: the C reference's frame dumps (N=128, K=64, 1.0 dB, seed
+# 1024, 8 frames each) and the port's native C engine (native/golden_ref.c)
+# at N=1024, K=512, 2.0 dB, seed 1024, on the reference's own noise stream
+GOLDEN_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "tests", "golden")
+GOLDEN_SEED = 1024
+GOLDEN_LIST = 8
+GOLDEN_BP_ITERS = 100
+# (decoder, fixture file); CA-SCL's CRC is CRC-6 at N=128
+GOLDEN_FIXTURES = (("sc", "sc128_frames.txt"), ("sc_fag", "sc_128_fag_frames.txt"),
+                   ("scl", "scl_128_frames.txt"),
+                   ("cascl", "cascl_128_frames.txt"), ("bp", "bp_128_frames.txt"))
+GOLDEN_FIXTURE_CODE = (128, 64, 1.0)
+GOLDEN_CODE = (1024, 512, 2.0)
+# (decoder, frames, differing frames allowed, error blocks of C and card):
+# the counts of the plain versions on the CPU against the C engine; BP may
+# steer one non-converged (chaotic) frame elsewhere.  CRC-24 at N=1024
+GOLDEN_CASES = (("sc", 8192, 0, 696), ("scl", 1024, 0, 9),
+                ("cascl", 512, 0, 1), ("bp", 256, 1, 6))
+GOLDEN_NOISE_FRAMES = 64
+# cli analyze's BPDEGA at N=128, K=64, 2.0 dB against BPDEGA_128.c's output
+GOLDEN_DEGA_SNR = 2.0
+GOLDEN_DEGA_TOL = 2e-6
 
 
 def check(cond, msg):
@@ -2133,6 +2177,256 @@ def phase_sweeps(card):
                                     "turns": turns}})
 
 
+def golden_frames(name):
+    """A C frame dump of tests/golden: {frame: {"U", "Y", "H"}}, U and H
+    int8 [N], Y float64 [N]."""
+    frames = {}
+    with open(os.path.join(GOLDEN_DIR, name)) as f:
+        for line in f:
+            parts = line.split()
+            if parts[0] != "FRAME":
+                continue
+            frames.setdefault(int(parts[1]), {})[parts[2]] = (
+                np.array([float(v) for v in parts[3:]]) if parts[2] == "Y"
+                else np.array([int(v) for v in parts[3:]], dtype=np.int8))
+    return frames
+
+
+def golden_code(decoder, N, K):
+    """(frozen [N] bool, the info positions carrying [message || CRC] in
+    encode order, CRC exponents or None): CA-SCL reserves K + r channels,
+    CRC-6 at N=128 and CRC-24 above, as the presets."""
+    from polardecoding_tpu_torch.ops.crc import CRC6_EXPONENTS, CRC24_EXPONENTS
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask, info_set
+
+    exps = None
+    if decoder == "cascl":
+        exps = CRC6_EXPONENTS if N <= 128 else CRC24_EXPONENTS
+    KI = K + (max(exps) if exps else 0)
+    return frozen_mask(N, KI), info_set(N, KI), exps
+
+
+def golden_words(frames, N, K, info, exps):
+    """The C engine's frames 0..frames-1: w [frames, K + r] (the PN payload,
+    multiplied by the CRC's g(D) for CA-SCL) and u [frames, N] int8 with w
+    on the info positions."""
+    from polardecoding_tpu_torch.ops.crc import crc_encode_multiplicative
+    from polardecoding_tpu_torch.utils.pn import payload_bits_host
+
+    w = np.stack([payload_bits_host(f, K) for f in range(frames)])
+    if exps:
+        w = crc_encode_multiplicative(torch.as_tensor(w), exps).numpy()
+    u = np.zeros((frames, N), dtype=np.int8)
+    u[:, info] = w
+    return w, u
+
+
+def golden_y(u, noise):
+    """y = BPSK(u . F^{tensor n}) + noise in float64, the C order (x ? -1 :
+    1, then + n), the codeword by encode_dense.  The payload window repeats
+    every 63 frames, so at most 63 rows are encoded."""
+    from polardecoding_tpu_torch.utils.gf2 import dense_generator, encode_dense
+    from polardecoding_tpu_torch.utils.pn import PN_PERIOD
+
+    rows = min(len(u), PN_PERIOD)
+    row = np.arange(len(u)) % rows
+    check(np.array_equal(u, u[row]), "the payload does not repeat every 63 frames")
+    x = encode_dense(u[:rows], dense_generator(u.shape[1]))[row]
+    return (1.0 - 2.0 * x.astype(np.float64)) + noise
+
+
+def golden_llr(y, sigma, device):
+    """2 * y / sigma / sigma in float64, the C engine's order
+    (native/golden_ref.c:410, 490), then float32 on `device`."""
+    return torch.as_tensor((2.0 * y / sigma / sigma).astype(np.float32),
+                           device=device)
+
+
+def golden_decode(decoder, llr, frozen, info, exps):
+    """Decode through the port's entry points, engine "auto": the kernels
+    for a CUDA tensor, the plain versions for a CPU one.  Returns (u_hat
+    [B, N] int8 on the host, the kernel the decoder launches)."""
+    from polardecoding_tpu_torch.models.bp import bp_decode_auto
+    from polardecoding_tpu_torch.models.scl import (cascl_decode,
+                                                    sc_decode_auto,
+                                                    scl_decode_auto)
+    from polardecoding_tpu_torch.ops.crc import check_matrix
+
+    fr = torch.as_tensor(frozen, device=llr.device)
+    if decoder in ("sc", "sc_fag"):
+        out, kernel = sc_decode_auto(llr, fr), "scl_decode"
+    elif decoder == "scl":
+        out, kernel = scl_decode_auto(llr, fr, list_size=GOLDEN_LIST), "scl_decode"
+    elif decoder == "cascl":
+        out = cascl_decode(llr, fr, torch.as_tensor(info, device=llr.device),
+                           check_matrix(exps, len(info)), list_size=GOLDEN_LIST)
+        kernel = "scl_decode"
+    else:
+        out = bp_decode_auto(llr, fr, iters=GOLDEN_BP_ITERS)
+        kernel = "bp_decode"
+    return out.cpu().numpy(), kernel
+
+
+def counted(device, run):
+    """run() with the launch counts at 0 just before: (its result, the
+    counts of the kernels it launched, its milliseconds).  On the card the
+    time ends in a synchronize."""
+    cuda = torch.device(device).type == "cuda"
+    reset_counts()
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    if cuda:
+        torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return out, {k: launches(k) for k in kernels() if launches(k)}, ms
+
+
+def golden_fixture_results(device):
+    """Each C frame dump of GOLDEN_FIXTURES: the port's payload and float64
+    y against the dump's U and Y (the port's golden_noise, payload_bits_host,
+    crc_encode_multiplicative and encode_dense), and the port's decoder on
+    the dump's Y against its H.  {decoder: {"frames", "u_equal", "y_equal",
+    "h_equal", "c_correct" (frames C decoded right), "h_equal_on_c_correct",
+    "launches", "ms"}}."""
+    from polardecoding_tpu_torch.utils.rng import golden_noise
+
+    N, K, snr = GOLDEN_FIXTURE_CODE
+    sigma = 10.0 ** (-snr / 20.0)
+    out = {}
+    for decoder, name in GOLDEN_FIXTURES:
+        fx = golden_frames(name)
+        runs = sorted(fx)
+        frozen, info, exps = golden_code(decoder, N, K)
+        _, u = golden_words(len(runs), N, K, info, exps)
+        y = golden_y(u, golden_noise(GOLDEN_SEED, len(runs), N, sigma))
+        want_u = np.stack([fx[r]["U"] for r in runs])
+        want_y = np.stack([fx[r]["Y"] for r in runs])
+        want_h = np.stack([fx[r]["H"] for r in runs])
+        llr = golden_llr(want_y, sigma, device)
+        (got, kernel), counts, ms = counted(
+            device, lambda: golden_decode(decoder, llr, frozen, info, exps))
+        right = (want_h == want_u).all(axis=1)
+        equal = (got == want_h).all(axis=1)
+        out[decoder] = {"frames": len(runs),
+                        "u_equal": int((u == want_u).all(axis=1).sum()),
+                        "y_equal": int((y == want_y).all(axis=1).sum()),
+                        "h_equal": int(equal.sum()),
+                        "c_correct": int(right.sum()),
+                        "h_equal_on_c_correct": int(equal[right].sum()),
+                        "kernel": kernel, "launches": counts, "ms": ms}
+    return out
+
+
+def golden_engine_results(device, cases=GOLDEN_CASES, code=GOLDEN_CODE):
+    """The port's decoders against the port's native C engine at matched
+    seeds, frame by frame: the port's golden_noise bit-equal to the C
+    engine's on the first GOLDEN_NOISE_FRAMES frames, then per case
+    (decoder, frames, ...) the frames whose decoded info bits differ from
+    C's and both sides' error blocks.  Returns ({decoder: {"frames",
+    "c_errblock", "errblock", "differing", "kernel", "launches", "ms",
+    "c_seconds"}}, golden_noise's host seconds, frames whose noise equals
+    C's)."""
+    from polardecoding_tpu_torch import native
+    from polardecoding_tpu_torch.utils.rng import golden_noise
+
+    N, K, snr = code
+    sigma = 10.0 ** (-snr / 20.0)
+    frames = max(c[1] for c in cases)
+    t0 = time.perf_counter()
+    noise = golden_noise(GOLDEN_SEED, frames, N, sigma)
+    noise_s = time.perf_counter() - t0
+    head = min(GOLDEN_NOISE_FRAMES, frames)
+    c_noise = native.golden_noise(GOLDEN_SEED, head, N, sigma)
+    noise_equal = int((c_noise == noise[:head]).all(axis=1).sum())
+    out = {}
+    for decoder, B, *_ in cases:
+        frozen, info, exps = golden_code(decoder, N, K)
+        t0 = time.perf_counter()
+        if decoder in ("bp", "sc"):
+            _, c_ebl, c_bits = native.golden_mc(N, K, info, GOLDEN_SEED, snr, B,
+                                                decoder=decoder,
+                                                iters=GOLDEN_BP_ITERS)
+        else:
+            _, c_ebl, c_bits = native.golden_mc_list(
+                N, K, info, GOLDEN_SEED, snr, B, list_size=GOLDEN_LIST,
+                crc_exponents=exps)
+        c_s = time.perf_counter() - t0
+        w, u = golden_words(B, N, K, info, exps)
+        llr = golden_llr(golden_y(u, noise[:B]), sigma, device)
+        (got, kernel), counts, ms = counted(
+            device, lambda: golden_decode(decoder, llr, frozen, info, exps))
+        bits = got[:, info]
+        out[decoder] = {"frames": B, "c_errblock": int(c_ebl),
+                        "errblock": int((bits != w).any(axis=1).sum()),
+                        "differing": int((bits != c_bits).any(axis=1).sum()),
+                        "kernel": kernel, "launches": counts, "ms": ms,
+                        "c_seconds": c_s}
+    return out, noise_s, noise_equal
+
+
+def phase_golden(card):
+    """Golden mode on the card: the C reference's frame dumps and the port's
+    native C engine (built from native/golden_ref.c with cc into _build/),
+    decoded by the kernels.  Fixtures: the port's U and Y bit-equal to every
+    dump's, and u_hat equal to C's H on every frame (BP: on every frame C
+    decoded right).  GOLDEN_CASES: the port's golden_noise bit-equal to
+    C's on its first frames, each decoder's differing frames within the
+    case's allowance and both sides' error blocks the case's.  Every decode
+    launches its kernel once, and no other kernel.  Then `cli analyze
+    --tool bpdega` at N=128 (host numpy and scipy) against BPDEGA_128.c's
+    output."""
+    from polardecoding_tpu_torch import cli
+
+    t0 = time.perf_counter()
+    fixtures = golden_fixture_results(DEVICE)
+    engine, noise_s, noise_equal = golden_engine_results(DEVICE)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main(["analyze", "--tool", "bpdega", "--N", "128", "--K", "64",
+                  "--snr", str(GOLDEN_DEGA_SNR)])
+    bler = json.loads(out.getvalue())[str(GOLDEN_DEGA_SNR)]["bler"]
+    want = None
+    with open(os.path.join(GOLDEN_DIR, "BPDEGA_128.txt")) as f:
+        for line in f:
+            parts = line.split()
+            if line.startswith("bSNR") and float(parts[2]) == GOLDEN_DEGA_SNR:
+                want = float(parts[5])
+    emit({"golden": {"card": card, "fixtures": fixtures, "engine": engine,
+                     "noise_frames_equal": noise_equal,
+                     "noise_host_s": noise_s,
+                     "c_engine_s": sum(r["c_seconds"] for r in engine.values()),
+                     "decode_ms": {k: r["ms"] for k, r in engine.items()},
+                     "bpdega_bler": bler, "bpdega_c_bler": want,
+                     "seconds": time.perf_counter() - t0}})
+    for decoder, r in fixtures.items():
+        n = r["frames"]
+        check(r["u_equal"] == n and r["y_equal"] == n,
+              f"golden fixture {decoder}: U or Y differs from C's {r}")
+        if decoder == "bp":
+            check(r["h_equal_on_c_correct"] == r["c_correct"] > 0,
+                  f"golden fixture bp: {r}")
+        else:
+            check(r["h_equal"] == n, f"golden fixture {decoder}: {r}")
+        check(r["launches"] == {r["kernel"]: 1},
+              f"golden fixture {decoder} launched {r['launches']}")
+    check(noise_equal == GOLDEN_NOISE_FRAMES,
+          f"golden noise: {noise_equal} frames equal to the C engine's")
+    for decoder, B, allowed, blocks in GOLDEN_CASES:
+        r = engine[decoder]
+        check(r["c_errblock"] == blocks and r["errblock"] == blocks
+              and r["differing"] <= allowed,
+              f"golden {decoder} at N={GOLDEN_CODE[0]}: {r}")
+        check(r["launches"] == {r["kernel"]: 1},
+              f"golden {decoder} launched {r['launches']}")
+    check(want is not None and abs(bler - want) < GOLDEN_DEGA_TOL,
+          f"cli analyze bpdega {bler} against BPDEGA_128.c's {want}")
+    return {k: sum(r["launches"].get(k, 0) for r in
+                   list(fixtures.values()) + list(engine.values()))
+            for k in ("bp_decode", "scl_decode")}
+
+
 def multi_rank_paths(mesh):
     """MR_CASES on `mesh` (None: one process on DEVICE), each run twice: a
     warmup (a rank's first launches load its kernels' libraries), then
@@ -2638,6 +2932,7 @@ def main() -> int:
                               max(worst, phase_sigma_table_compare()))
     phase_fused_sweep(card)
     phase_sweeps(card)
+    golden_counts = phase_golden(card)
     phase_multi_rank(card, times["mc_channel"][0])
     check("jax" not in sys.modules, "the port imported jax")
 
@@ -2666,7 +2961,10 @@ def main() -> int:
             "name": name, "route": "cuda", "source": mod.SOURCE,
             "replaces": (mod.REPLACES[name] if isinstance(mod.REPLACES, dict)
                          else mod.REPLACES),
-            "launches": counts[name], "max_abs_err": worst,
+            "launches": counts[name],
+            **({"golden_launches": golden_counts[name]}
+               if name in golden_counts else {}),
+            "max_abs_err": worst,
             "matches_plain": worst == 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     emit({"kernels": lines})

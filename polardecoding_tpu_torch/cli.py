@@ -1,10 +1,12 @@
-"""Command-line interface of the port (the JAX package's cli `run`, `bpr`,
-`bench` and `presets` subcommands), with structured JSON results.
+"""Command-line interface of the port (the JAX package's cli and its
+subcommands), with structured JSON results.
 
   python -m polardecoding_tpu_torch.cli run --preset BP_1024 --snr 1.0 3.0 0.5
   python -m polardecoding_tpu_torch.cli run --preset BP_128 --out bp128.json
   python -m polardecoding_tpu_torch.cli run --preset SCL_1024_L8 --seeds 1 2 3
   python -m polardecoding_tpu_torch.cli bpr --preset BPr_128 --snr 2.0
+  python -m polardecoding_tpu_torch.cli analyze --tool bprga --N 128 --K 64 --snr 1.0 4.0 0.5
+  python -m polardecoding_tpu_torch.cli plot --out curves.png bp128.json ...
   python -m polardecoding_tpu_torch.cli bench --preset BP_1024 --batch 4096
   python -m polardecoding_tpu_torch.cli scale --preset BP_1024
   torchrun --nproc-per-node <gpus> -m polardecoding_tpu_torch.cli scale --distributed
@@ -20,7 +22,10 @@ frames/s at 1, 2, 4, ... ranks (`--distributed` joins the group first).  `run --
 per-seed records and their pooled average.  `bpr` prints, per SNR point,
 the BLER and the reference's stage-error table E / frames at each
 checkpoint.  `bench` prints {"preset", "frames_per_sec"}: the frame step's
-frames/s (bench.bench_step, 5 steps after 2 of warmup).
+frames/s (bench.bench_step, 5 steps after 2 of warmup).  `analyze` prints
+a DE-GA prediction (analysis/dega.py) per SNR point and `plot` writes a
+BLER plot of `run` records over the reference curves (plotting.py); both
+run on the host and take no `--device`.
 """
 from __future__ import annotations
 
@@ -103,6 +108,41 @@ def cmd_run(args):
         with open(args.out, "w") as f:
             f.write(text)
     print(text)
+
+
+def cmd_analyze(args):
+    import numpy as np
+
+    from polardecoding_tpu_torch.analysis import dega
+
+    snrs = _snr_list(args) or [1.0 + 0.5 * i for i in range(7)]
+    out = {}
+    for snr in snrs:
+        if args.tool == "bpdega":
+            r = dega.bpdega(args.N, args.K, snr, args.iters or 100)
+            out[snr] = {"bler": r.bler, "ber": r.ber}
+            continue
+        if args.tool == "bprga":
+            rows = dega.bprga(args.N, args.K, snr, args.iters or 28)
+        elif args.tool == "bprga_allbit":
+            rows = dega.bprga_allbit(args.N, args.K, snr, args.iters or 30)
+        elif args.tool == "bprga_w":
+            # N=1024 uses the BPRGA_1024_W.c window iterMax/snr
+            ni = int((args.iters or 40) / snr) if args.N >= 1024 else None
+            rows = dega.bprga_w(args.N, args.K, snr, args.iters or 32,
+                                num_iters=ni)
+        else:
+            rows = dega.bprga_m(args.N, args.K, snr, args.iters or 32)
+        out[snr] = {str(it): list(np.round(E, 6)) for it, E in rows.items()}
+    print(json.dumps(out, indent=1))
+
+
+def cmd_plot(args):
+    from polardecoding_tpu_torch.plotting import load_records, plot_results
+
+    recs = load_records(args.results)
+    path = plot_results(recs, args.out, title=args.title)
+    print(f"wrote {path}")
 
 
 def cmd_bpr(args):
@@ -189,6 +229,16 @@ def main(argv=None):
     rp.add_argument("-v", "--verbose", action="store_true")
     rp.set_defaults(fn=cmd_run)
 
+    ana = sub.add_parser("analyze", help="DE-GA analytical prediction")
+    ana.add_argument("--tool", required=True,
+                     choices=["bpdega", "bprga", "bprga_allbit", "bprga_w",
+                              "bprga_m"])
+    ana.add_argument("--N", type=int, default=128)
+    ana.add_argument("--K", type=int, default=64)
+    ana.add_argument("--iters", type=int, default=None)
+    ana.add_argument("--snr", type=float, nargs="*", default=None)
+    ana.set_defaults(fn=cmd_analyze)
+
     br = sub.add_parser("bpr", help="BPr per-stage convergence instrumentation")
     br.add_argument("--preset", default="BPr_128")
     br.add_argument("--batch", type=int, default=None)
@@ -199,6 +249,12 @@ def main(argv=None):
     br.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     br.set_defaults(fn=cmd_bpr)
+
+    pl = sub.add_parser("plot", help="plot result JSONs vs reference curves")
+    pl.add_argument("results", nargs="+")
+    pl.add_argument("--out", default="bler.png")
+    pl.add_argument("--title", default=None)
+    pl.set_defaults(fn=cmd_plot)
 
     bp = sub.add_parser("bench", help="throughput benchmark")
     bp.add_argument("--preset", default="BP_1024")

@@ -60,6 +60,12 @@ def frame_keys(seed_key: torch.Tensor, frame_index: torch.Tensor) -> torch.Tenso
     return fold_in(seed_key, frame_index)
 
 
+def llr_from_y(y: torch.Tensor, sigma) -> torch.Tensor:
+    """Channel LLR for externally supplied received samples (golden mode),
+    in y's dtype and on its device."""
+    return 2.0 * y / (sigma * sigma)
+
+
 def random_bits(keys: torch.Tensor, n: int, start: int = 0) -> torch.Tensor:
     """jax.random.bits(key, (n,), uint32) for each key of keys [..., 2]:
     threefry of the counters (0, j) for j < n, the two output words xored.

@@ -80,6 +80,18 @@ def gf2_matmul(bits: torch.Tensor, M: np.ndarray) -> torch.Tensor:
     return (acc.to(torch.int64) & 1).to(bits.dtype)
 
 
+def crc_syndrome(codeword_bits: torch.Tensor, R: np.ndarray) -> torch.Tensor:
+    """Batched GF(2) syndrome: codeword_bits [..., length] x R [length, r],
+    int32 0/1 [..., r].  One gf2_matmul: exact for 0/1 bits (sums below
+    2^24)."""
+    return gf2_matmul(codeword_bits.to(torch.int32), R)
+
+
+def crc_passes(codeword_bits: torch.Tensor, R: np.ndarray) -> torch.Tensor:
+    """True where the codeword is divisible by g."""
+    return (crc_syndrome(codeword_bits, R) == 0).all(dim=-1)
+
+
 def crc_encode_multiplicative(message_bits: torch.Tensor, exponents):
     """w = m(D) g(D) as a batched GF(2) product; returns [..., k + r]."""
     E = multiplicative_encode_matrix(exponents, message_bits.shape[-1])

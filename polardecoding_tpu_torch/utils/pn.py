@@ -31,3 +31,17 @@ def pn_sequence() -> np.ndarray:
         # shift: U[5]<-U[4]<-...<-U[0]<-b
         state = [b] + state[:5]
     return out
+
+
+def payload_offsets(frame_index: np.ndarray, k: int) -> np.ndarray:
+    """Rotating PN offset m for each frame index (m advances by K % 63 per frame)."""
+    step = k % PN_PERIOD
+    return (np.asarray(frame_index) * step) % PN_PERIOD
+
+
+def payload_bits_host(frame_index: int, k: int) -> np.ndarray:
+    """Host-side payload for one frame: K bits PN[(m + i) % 63]."""
+    pn = pn_sequence()
+    m = (frame_index * (k % PN_PERIOD)) % PN_PERIOD
+    idx = (m + np.arange(k)) % PN_PERIOD
+    return pn[idx]

@@ -4,6 +4,7 @@
   - 5G reliability tables   (ref: SC_128.c:42-51, SC_1024.c:42-90)
   - info set  I[i] = Q[N-K+i], frozen mask inI   (ref: SC_128.c:139-147)
   - CA-SCL info set reserves K+r most reliable   (ref: CASCL_128.c:169-177)
+  - bit-reversal permutation                     (ref: SC_128_fag.c:139-155)
 """
 from __future__ import annotations
 
@@ -36,3 +37,18 @@ def frozen_mask(N: int, num_info: int) -> np.ndarray:
     mask = np.ones(N, dtype=bool)
     mask[info_set(N, num_info)] = False
     return mask
+
+
+def bit_reversal(N: int) -> np.ndarray:
+    """bRev[i] = i with its log2(N) bits reversed (ref: SC_128_fag.c:139-155).
+
+    An involution: bRev[bRev[i]] == i.
+    """
+    n = N.bit_length() - 1
+    if 1 << n != N:
+        raise ValueError(f"N={N} is not a power of two")
+    idx = np.arange(N, dtype=np.int64)
+    out = np.zeros(N, dtype=np.int64)
+    for b in range(n):
+        out |= ((idx >> b) & 1) << (n - 1 - b)
+    return out.astype(np.int32)

@@ -1,6 +1,7 @@
-"""The port stands alone: it imports without JAX and without nvcc, its build
-helper raises when it cannot build, and on a card each kernel equals its
-plain version.  This file imports no JAX, so its card tests also run where JAX
+"""The port stands alone: it imports without JAX, without matplotlib (which
+only plotting.plot_results imports, when called) and without nvcc, its build
+helper raises when it cannot build, its C engine wrapper builds into the
+port's own _build/, and on a card each kernel equals its plain version.  This file imports no JAX, so its card tests also run where JAX
 is absent:
 
   python -m pytest --noconftest -q -m cuda tests/test_torch_import.py
@@ -17,12 +18,13 @@ from polardecoding_tpu_torch.ops import _build
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# Removes any JAX already loaded, refuses JAX and the JAX package from then
-# on, imports every module of the port and reports what it imported.
+# Removes any JAX already loaded, refuses JAX, the JAX package and matplotlib
+# from then on, imports every module of the port and reports what it
+# imported.
 _IMPORT_ALL = """
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "polardecoding_tpu")
+BLOCKED = ("jax", "jaxlib", "polardecoding_tpu", "matplotlib")
 
 def blocked(name):
     return any(name == b or name.startswith(b + ".") for b in BLOCKED)
@@ -51,7 +53,36 @@ def test_every_port_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, loaded = out.stdout.split(maxsplit=1)
-    assert int(count) >= 20  # the package and its modules, harness included
+    # the package and its modules, harness, DE-GA, rng, native and
+    # plotting included
+    assert int(count) >= 25
+    assert loaded.strip() == "[]"
+
+
+# the C engine's wrapper with JAX, the JAX package and matplotlib refused:
+# where it builds, and one call through it
+_NATIVE = _IMPORT_ALL.split("import polardecoding_tpu_torch as pkg")[0] + """
+from polardecoding_tpu_torch import native
+try:
+    native.golden_noise(1, 1, 8, 1.0)
+except native.NativeUnavailable:
+    print("unavailable")
+    raise SystemExit(0)
+print(native._LIB, sorted(m for m in sys.modules if blocked(m)))
+"""
+
+
+def test_native_builds_into_the_port_build_dir():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _NATIVE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    if out.stdout.strip() == "unavailable":
+        pytest.skip("no C compiler")
+    lib, loaded = out.stdout.split(maxsplit=1)
+    assert lib == os.path.join(REPO, "polardecoding_tpu_torch", "_build",
+                               "libgolden_ref.so")
+    assert os.path.exists(lib)
     assert loaded.strip() == "[]"
 
 
