@@ -157,7 +157,22 @@
    2.0 dB within 2e-6 of BPDEGA_128.c's BLER.  Its `golden` line gives the
    counts, the launches, the C engine's and golden_noise's host seconds
    and each decode's milliseconds;
-18. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
+18. the reproduction's pins (polardecoding_tpu_torch/reproduce.py): each
+   pinned point of the four plans (reproduce.pinned_runs: a preset's first
+   point, 1.0 dB, one step of 4096 frames; BP_1024_GA's the fused wave
+   engine to its retired frames) through the run half, run_presets, into
+   a temporary directory, each with the launch counts at 0 just before:
+   (errbit, errblock, frames) equal to reproduce.JAX_CPU_PINS, the JAX
+   package's run_sweep on the CPU, and the preset's path kernels
+   (reproduce.path_kernels: rows 1, 2 or 6 and the frame channel)
+   launched, no other.  N = 128 and 1024, L = 1 to 32, CRC-6 and CRC-24,
+   multiplicative and systematic, Lee and Kao wiring, the GA-constructed
+   mask; its `reproduce_pins` line gives each point's counts, launches and
+   milliseconds.  Then a profile line (as phase 10's) of three steps at
+   batch 4096 of SC_1024, BP_1024, CASCL_1024_L8, CASCL_1024_sys_L8,
+   CASCL_1024_L32 and BP_1024_GA's fused wave engine: the host's share of
+   a reproduction step;
+19. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
    ranks on one card) and a one-rank nccl group, each a subprocess of this
    script (`chip_smoke.py --rank RANK WORLD BACKEND STORE OUT`) with a time
    limit, while this process runs the same paths alone (each path once
@@ -173,7 +188,7 @@
    of a sum of three counters on each backend, and the phase's wall time;
    the `row5` line the MC channel kernel's time beside its 0.0587 ms
    before the first-row argument (PERF.md section 6);
-19. prints the kernels line (each kernel's launches on its main path, its
+20. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
@@ -203,6 +218,7 @@ import runpy
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -464,6 +480,12 @@ BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "bp_1024_wave_fps",
               "bp_1024_fixed100_fps", "scl_preset", "scl_fps",
               "scl_1024_l8_fps", "vs_baseline_fixed_iters"}
 
+
+# the reproduction's presets whose steps are profiled at its batch, 4096:
+# its five heaviest (SC_1024, the most frames; BP_1024, CASCL_1024_L8, its
+# systematic CRC-24 flavor and L=32) and the wave engine (BP_1024_GA)
+REPRODUCE_PROFILES = ("SC_1024", "BP_1024", "CASCL_1024_L8", "CASCL_1024_sys_L8",
+                      "CASCL_1024_L32", "BP_1024_GA")
 
 # golden mode: the C reference's frame dumps (N=128, K=64, 1.0 dB, seed
 # 1024, 8 frames each) and the port's native C engine (native/golden_ref.c)
@@ -1173,16 +1195,17 @@ def frame_step_runner(name, batch, **kw):
     return lambda s: [int(c) for c in step(key, s * batch, sigma)]
 
 
-def wave_runner(name, make, **kw):
+def wave_runner(name, make, batch=None, **kw):
     """run(s): the next step of a wave stepper (make is make_wave_step or
-    make_wave_step_mc) at MAIN_SNR with batch WAVE_BATCH, its counters read
-    on the host; run.carry holds the carry."""
+    make_wave_step_mc) at MAIN_SNR with `batch` (default WAVE_BATCH), its
+    counters read on the host; run.carry holds the carry."""
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
                                                      sigma_from_ebn0_db)
 
     p = preset(name)
-    init, step, _ = make(p, WAVE_BATCH, device=DEVICE, **kw)
+    init, step, _ = make(p, WAVE_BATCH if batch is None else batch,
+                         device=DEVICE, **kw)
     key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
     sigma = float(sigma_from_ebn0_db(MAIN_SNR))
 
@@ -2427,6 +2450,57 @@ def phase_golden(card):
             for k in ("bp_decode", "scl_decode")}
 
 
+def reproduce_pin_results(device, names=None):
+    """Each pinned point of the reproduction (reproduce.pinned_runs, or
+    those of `names`) through its run half on `device`, into a temporary
+    directory, with the launch counts at 0 just before: {preset: {"got":
+    its (errbit, errblock, frames), "pin": JAX_CPU_PINS', "kernels": its
+    path's, "launches", "ms"}}.  On the card run_presets also checks a
+    frame-step preset's decoder and frame channel once a step."""
+    from polardecoding_tpu_torch import reproduce
+    from polardecoding_tpu_torch.configs import preset
+
+    points = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run in reproduce.pinned_runs():
+            if names is not None and run.preset not in names:
+                continue
+            done, counts, ms = counted(device, lambda: reproduce.run_presets(
+                [run], tmp, device=device, log=None, commit="chip_smoke"))
+            rec = done[run.file]["records"][0]
+            points[run.preset] = {
+                "got": [rec["errbit"], rec["errblock"], rec["frames"]],
+                "pin": list(reproduce.JAX_CPU_PINS[run.preset]),
+                "kernels": list(reproduce.path_kernels(preset(run.preset))),
+                "launches": counts, "ms": ms}
+    return points
+
+
+def phase_reproduce_pins(card):
+    """The reproduction's pins on the card: every pinned point equal to
+    JAX_CPU_PINS, and its path's kernels launched, no other.  Then the
+    profiles of the heaviest presets' steps at the reproduction's batch
+    (REPRODUCE_PROFILES): the host's share of a reproduction step."""
+    from polardecoding_tpu_torch.parallel.harness import make_wave_step
+    from polardecoding_tpu_torch.reproduce import BATCH
+
+    t0 = time.perf_counter()
+    points = reproduce_pin_results(DEVICE)
+    emit({"reproduce_pins": {"card": card, "points": points,
+                             "seconds": time.perf_counter() - t0}})
+    for name, r in points.items():
+        check(r["got"] == r["pin"],
+              f"reproduce pin {name}: {r['got']} against the JAX package's "
+              f"{r['pin']}")
+        check(set(r["launches"]) == set(r["kernels"]),
+              f"reproduce pin {name} launched {r['launches']}, expected "
+              f"{r['kernels']}")
+    for name in REPRODUCE_PROFILES:
+        run = (wave_runner(name, make_wave_step, batch=BATCH)
+               if name == "BP_1024_GA" else frame_step_runner(name, BATCH))
+        phase_profile(card, f"{name} reproduction step", BATCH, run)
+
+
 def multi_rank_paths(mesh):
     """MR_CASES on `mesh` (None: one process on DEVICE), each run twice: a
     warmup (a rank's first launches load its kernels' libraries), then
@@ -2933,6 +3007,7 @@ def main() -> int:
     phase_fused_sweep(card)
     phase_sweeps(card)
     golden_counts = phase_golden(card)
+    phase_reproduce_pins(card)
     phase_multi_rank(card, times["mc_channel"][0])
     check("jax" not in sys.modules, "the port imported jax")
 
