@@ -172,7 +172,24 @@
    batch 4096 of SC_1024, BP_1024, CASCL_1024_L8, CASCL_1024_sys_L8,
    CASCL_1024_L32 and BP_1024_GA's fused wave engine: the host's share of
    a reproduction step;
-19. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
+19. the studies (polardecoding_tpu_torch/studies), each through its run
+   entry at a short setting (STUDIES_QUICK) into a temporary directory,
+   with the launch counts at 0 just before: every entry of STUDY_PINS
+   exact (the JAX package's counts on the CPU: bler_r1's exact and rate-1
+   arms on SCL_128_L8 at 3.0 dB and bf16_study's float32 and bfloat16 arms
+   on BP_128 at 4.0 dB, each one step of 8192 frames; the tie study's
+   CASCL_128_L32 record, 8192 frames at 2.0 dB); scl_parity_hw (64 frames,
+   L = 8, 16, 32 and the rate-1 flavor) and es_sanity_hw (256 frames)
+   bit-equal; bler_wavemc's fused, mc and mc-tf arms at 2.0 dB for one
+   chunk at K=32, cadence 2, each within |z| <= 4 of its TPU row;
+   precision part 1's C arm one round of 1024-frame chunks; each run's
+   kernels launched (STUDIES_QUICK_LAUNCHES), no other, and each wave arm
+   only its engine's (mc-tf: the MC wave kernel, its words from the plain
+   random_bits).  The tie study launches the SCL kernel alone: its channel
+   is the script's constant-sigma form, in plain PyTorch.  Its
+   `studies_quick` line gives the pins, each run's launches, milliseconds
+   and failed checks;
+20. the multi-rank path: two gloo ranks on the one card (NCCL refuses two
    ranks on one card) and a one-rank nccl group, each a subprocess of this
    script (`chip_smoke.py --rank RANK WORLD BACKEND STORE OUT`) with a time
    limit, while this process runs the same paths alone (each path once
@@ -188,14 +205,15 @@
    of a sum of three counters on each backend, and the phase's wall time;
    the `row5` line the MC channel kernel's time beside its 0.0587 ms
    before the first-row argument (PERF.md section 6);
-20. prints the kernels line (each kernel's launches on its main path, its
+21. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
    the card's rate for float32 adds, compares and selects, and the integer
    ones among them over 16.7e12, its INT32 rate; a probe's launches are
    those of its driver's run; the frame channel's those of the
-   SCL_1024_L8 path).  A BP kernel's operations are counted on
+   SCL_1024_L8 path; golden_launches and studies_launches those of
+   phases 17 and 19).  A BP kernel's operations are counted on
    the timed inputs, by a plain run on them (counted_chks, its line
    chk_counts): a CHK whose table difference is +0 there counts only the
    operations it needs without the table; the frame channel's count the
@@ -510,6 +528,37 @@ GOLDEN_NOISE_FRAMES = 64
 # cli analyze's BPDEGA at N=128, K=64, 2.0 dB against BPDEGA_128.c's output
 GOLDEN_DEGA_SNR = 2.0
 GOLDEN_DEGA_TOL = 2e-6
+
+# the studies' quick phase (polardecoding_tpu_torch.studies): each study's
+# run entry at a short setting, in the order of studies.STUDIES.  bler_r1
+# and bf16_study one step of their scripts' batch, 8192 (the STUDY_PINS
+# steps; part 1's C arm one round of 1024-frame chunks), the tie study in
+# full (its CPU record is a pin), scl_parity_hw and es_sanity_hw on
+# 64 and 256 frames, bler_wavemc's three arms at 2.0 dB for one chunk at
+# the TPU run's settings (K=32, cadence 2)
+STUDIES_QUICK = {
+    "bler_r1": dict(cases=[("SCL_128_L8", 3.0, 8192)], error_blocks=1),
+    "bler_wavemc": dict(snrs=[2.0], error_blocks=1, mc_k=MC_ITERS,
+                        mc_cadence=MC_CADENCE),
+    "scl_parity_hw": dict(frames=64, flavors=True),
+    "es_sanity_hw": dict(frames=256),
+    "tie_impact_study": {},
+    "bf16_study": dict(blocks=1, points=[("BP_128", 4.0, 8192, 8192)],
+                       part1=[("BP_128", 4.0, 8192, 8192),
+                              ("SC_128", 4.0, 8192, 8192)], c_chunk=1024)}
+# the kernels each quick run launches on the card, with their counts where
+# the run fixes them (None: any positive count); each wave arm's line
+# launches only its engine's kernels
+STUDIES_QUICK_LAUNCHES = {
+    "bler_r1": {"scl_decode": 1, "scl_decode_r1": 1, "frame_channel": 2},
+    "bler_wavemc": {"bp_wave_fused": None, "frame_channel": None,
+                    "bp_wave_mc": None},
+    "scl_parity_hw": {"scl_decode": 6, "scl_decode_r1": 1, "frame_channel": 2},
+    "es_sanity_hw": {"bp_decode": 2, "frame_channel": 2},
+    "tie_impact_study": {"scl_decode": 16},
+    "bf16_study": {"bp_decode": 2, "scl_decode": 1, "frame_channel": 3}}
+STUDIES_WAVE_KERNELS = {"fused": {"bp_wave_fused", "frame_channel"},
+                        "mc": {"bp_wave_mc"}, "mc-tf": {"bp_wave_mc"}}
 
 
 def check(cond, msg):
@@ -2501,6 +2550,83 @@ def phase_reproduce_pins(card):
         phase_profile(card, f"{name} reproduction step", BATCH, run)
 
 
+def studies_quick_results(device, names=None):
+    """Each run of STUDIES_QUICK (or those of `names`) through its study's
+    run entry (studies.run_study) on `device`, into a temporary directory,
+    with the launch counts at 0 just before: {study: {"lines", "launches",
+    "ms", "failed": its checks that failed}}."""
+    from polardecoding_tpu_torch import studies
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kw in STUDIES_QUICK.items():
+            if names is not None and name not in names:
+                continue
+            lines, counts, ms = counted(device, lambda: studies.run_study(
+                name, tmp, device=device, log=None, commit="chip_smoke", **kw))
+            out[name] = {"lines": lines, "launches": counts, "ms": ms,
+                         "failed": studies.STUDIES[name].checks(lines)}
+    return out
+
+
+def study_pin_checks(results) -> list:
+    """Each STUDY_PINS entry against the quick runs' lines: (pin, got,
+    want) of every pin."""
+    from polardecoding_tpu_torch.studies import STUDY_PINS
+
+    def arm(study, **want):
+        return next(x for x in results[study]["lines"]
+                    if all(x.get(k) == v for k, v in want.items()))
+
+    held = []
+    for pin in ("bler_r1_exact", "bler_r1_fastr1"):
+        x = arm("bler_r1", preset=STUDY_PINS[pin]["preset"])
+        held.append((pin, [x["errbit"], x["errblock"], x["pm_ties"], x["frames"]],
+                     [*STUDY_PINS[pin]["counts"], STUDY_PINS[pin]["batch"]]))
+    for pin, dtype in (("bf16_f32", "f32"), ("bf16_bfloat16", "bfloat16")):
+        x = arm("bf16_study", part=2, dtype=dtype)
+        held.append((pin, [x["errbit"], x["errblock"], x["pm_ties"], x["frames"]],
+                     [*STUDY_PINS[pin]["counts"], STUDY_PINS[pin]["batch"]]))
+    x = next(x for x in results["tie_impact_study"]["lines"]
+             if "block_outcome_differs" in x)
+    want = STUDY_PINS["tie_impact_128"]
+    held.append(("tie_impact_128", {k: x[k] for k in want}, dict(want)))
+    return held
+
+
+def phase_studies_quick(card):
+    """The studies on the card at short settings (STUDIES_QUICK): every
+    STUDY_PINS entry exact, every study's checks held (parity lines
+    bit-equal, z within 4, the verdict OK), each run's kernels launched
+    (STUDIES_QUICK_LAUNCHES), no other; returns the launches of each
+    kernel summed over the runs."""
+    t0 = time.perf_counter()
+    results = studies_quick_results(DEVICE)
+    pins = study_pin_checks(results)
+    emit({"studies_quick": {
+        "card": card, "seconds": time.perf_counter() - t0,
+        "pins": [{"pin": p, "got": got, "want": want} for p, got, want in pins],
+        "runs": {name: {"launches": r["launches"], "ms": r["ms"],
+                        "failed": r["failed"]} for name, r in results.items()}}})
+    for p, got, want in pins:
+        check(got == want, f"study pin {p}: {got} against {want}")
+    for name, r in results.items():
+        check(not r["failed"], f"study {name}: {r['failed']}")
+        want = STUDIES_QUICK_LAUNCHES[name]
+        check(set(r["launches"]) == set(want) and all(
+            n is None or r["launches"][k] == n for k, n in want.items()),
+            f"study {name} launched {r['launches']}, expected {want}")
+    for x in results["bler_wavemc"]["lines"]:
+        if "engine" in x:
+            check(set(x["launches"]) == STUDIES_WAVE_KERNELS[x["engine"]],
+                  f"bler_wavemc {x['engine']} launched {x['launches']}")
+    total = {}
+    for r in results.values():
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def multi_rank_paths(mesh):
     """MR_CASES on `mesh` (None: one process on DEVICE), each run twice: a
     warmup (a rank's first launches load its kernels' libraries), then
@@ -3008,6 +3134,7 @@ def main() -> int:
     phase_sweeps(card)
     golden_counts = phase_golden(card)
     phase_reproduce_pins(card)
+    studies_counts = phase_studies_quick(card)
     phase_multi_rank(card, times["mc_channel"][0])
     check("jax" not in sys.modules, "the port imported jax")
 
@@ -3039,6 +3166,8 @@ def main() -> int:
             "launches": counts[name],
             **({"golden_launches": golden_counts[name]}
                if name in golden_counts else {}),
+            **({"studies_launches": studies_counts[name]}
+               if name in studies_counts else {}),
             "max_abs_err": worst,
             "matches_plain": worst == 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})

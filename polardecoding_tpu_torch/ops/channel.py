@@ -113,6 +113,19 @@ def awgn_llr_from_words(x: torch.Tensor, words: torch.Tensor, sigma) -> torch.Te
     return (y + y) / (sigma * sigma)
 
 
+def awgn_llr_const_sigma(x: torch.Tensor, keys: torch.Tensor, sigma: float) -> torch.Tensor:
+    """awgn_llr as XLA compiles it on the CPU when sigma is a constant of
+    the jitted function (the JAX scripts' frame generators close over
+    jnp.float32(sigma)): the constants fold, so y is the same FMA and the
+    LLR is y * (2 * (1 / sigma^2)), one product, where the frame step
+    computes (y + y) / sigma^2.  The two differ in the last ulp of about a
+    tenth of the elements.  Plain PyTorch on any device."""
+    u = uniform_jax(random_bits(keys, x.shape[-1]) & MASK32)
+    sigma = torch.tensor(sigma, dtype=torch.float32, device=x.device)
+    y = fma(erfinv_f32(u), sigma * SQRT2, bpsk(x))
+    return y * (2.0 * (1.0 / (sigma * sigma)))
+
+
 def frame_llr(x: torch.Tensor, key: torch.Tensor, fidx: torch.Tensor, sigma,
               engine: str = "auto") -> torch.Tensor:
     """The frame step's channel: LLRs [B, N] float32 of the codewords x

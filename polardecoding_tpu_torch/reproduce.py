@@ -180,13 +180,17 @@ def path_kernels(p) -> tuple:
 
 
 def launch_counts() -> dict:
-    """The launch counters of the kernels a reproduction can run."""
+    """The launch counters of the kernels a reproduction or a study
+    (polardecoding_tpu_torch.studies) can run."""
     from polardecoding_tpu_torch.ops import (bp_kernel, bp_wave_kernel,
+                                             bp_wave_mc_kernel, channel_kernel,
                                              frame_channel_kernel, scl_kernel)
 
     return {"bp_decode": bp_kernel.LAUNCHES,
             "bp_wave_fused": bp_wave_kernel.LAUNCHES["bp_wave_fused"],
             "bp_wave": bp_wave_kernel.LAUNCHES["bp_wave"],
+            "bp_wave_mc": bp_wave_mc_kernel.LAUNCHES,
+            "mc_channel": channel_kernel.LAUNCHES,
             "scl_decode": scl_kernel.LAUNCHES,
             "scl_decode_r1": scl_kernel.LAUNCHES_R1,
             "frame_channel": frame_channel_kernel.LAUNCHES}

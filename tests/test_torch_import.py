@@ -86,6 +86,37 @@ def test_native_builds_into_the_port_build_dir():
     assert loaded.strip() == "[]"
 
 
+# the hardware studies' modules with JAX, the JAX package and matplotlib
+# refused: each imported, and the command line at its default device
+_STUDIES = _IMPORT_ALL.split("import polardecoding_tpu_torch as pkg")[0] + """
+import pkgutil, torch
+import polardecoding_tpu_torch.studies as st
+names = sorted(m.name for m in pkgutil.walk_packages(st.__path__, st.__name__ + "."))
+for name in names:
+    importlib.import_module(name)
+rc = None if torch.cuda.is_available() else st.main(["--out", sys.argv[1]])
+print(names, rc, sorted(m for m in sys.modules if blocked(m)))
+"""
+
+
+def test_studies_import_without_jax(tmp_path):
+    """Every module of polardecoding_tpu_torch.studies imports with JAX and
+    the JAX package refused (its __main__ without running); without a card
+    the command line at its default device exits 2 and writes nothing."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _STUDIES, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    names = [f"polardecoding_tpu_torch.studies.{m}" for m in (
+        "__main__", "_common", "bf16_study", "bler_r1", "bler_wavemc",
+        "es_sanity_hw", "scl_parity_hw", "tie_impact_study")]
+    rc = "None" if torch.cuda.is_available() else "2"
+    assert out.stdout.strip() == f"{names} {rc} []"
+    if rc == "2":
+        assert "--device cpu" in out.stderr and not os.listdir(tmp_path)
+
+
 # the probe drivers, imported (not run) with JAX and the JAX package refused
 _IMPORT_SCRIPTS = _IMPORT_ALL.split("import polardecoding_tpu_torch as pkg")[0] + """
 import importlib.util, os
