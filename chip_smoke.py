@@ -205,15 +205,27 @@
    of a sum of three counters on each backend, and the phase's wall time;
    the `row5` line the MC channel kernel's time beside its 0.0587 ms
    before the first-row argument (PERF.md section 6);
-21. prints the kernels line (each kernel's launches on its main path, its
+21. ROADMAP queue A's drivers, each in this process at a short setting
+   (QUEUE_A_QUICK) into a temporary directory, with the launch counts at 0
+   just before: the ab_chkfast study (perf at one rep, both BLER pairs at
+   4.0 dB to 10 error blocks or 262,144 frames, every check held), and
+   scripts/torch_verify_drive.py --fast in full (VERIFY PASS, each check's
+   counts equal to the JAX package's on the CPU, torch_verify_drive.JAX_CPU),
+   torch_bench_scl.py --quick, torch_ab_r1.py at N=1024, L=8, B=2048 with
+   r1 0 and 4 (both parity lines bit-equal), torch_bench_wave.py --quick
+   and torch_ab_wavecheck.py at B=4096 over 4 steps: each exits 0 and
+   launches its path's kernels, no other.  Its `queue_a_quick` line gives
+   each run's exit, launches, seconds and the verify counts;
+22. prints the kernels line (each kernel's launches on its main path, its
    largest difference from the plain version, its time, the plain
    version's, and its bound: the larger of its bytes over the H100 SXM's
    3.35 TB/s, the operations its function needs over 33.5e12 per second,
    the card's rate for float32 adds, compares and selects, and the integer
    ones among them over 16.7e12, its INT32 rate; a probe's launches are
    those of its driver's run; the frame channel's those of the
-   SCL_1024_L8 path; golden_launches and studies_launches those of
-   phases 17 and 19).  A BP kernel's operations are counted on
+   SCL_1024_L8 path; golden_launches, studies_launches and
+   queue_a_launches those of phases 17, 19 and 21).  A BP kernel's
+   operations are counted on
    the timed inputs, by a plain run on them (counted_chks, its line
    chk_counts): a CHK whose table difference is +0 there counts only the
    operations it needs without the table; the frame channel's count the
@@ -559,6 +571,22 @@ STUDIES_QUICK_LAUNCHES = {
     "bf16_study": {"bp_decode": 2, "scl_decode": 1, "frame_channel": 3}}
 STUDIES_WAVE_KERNELS = {"fused": {"bp_wave_fused", "frame_channel"},
                         "mc": {"bp_wave_mc"}, "mc-tf": {"bp_wave_mc"}}
+# phase 21: the ab_chkfast study's short run (studies.run_study keywords),
+# then each queue A driver's (script, argv), each with the kernels it
+# launches, no other
+QUEUE_A_CHKFAST = dict(perf=True, bler=True, error_blocks=10,
+                       max_frames=262_144, reps=1)
+QUEUE_A_QUICK = (
+    ("torch_verify_drive.py", ["--fast"],
+     {"bp_decode", "scl_decode", "frame_channel"}),
+    ("torch_bench_scl.py", ["--quick"], {"scl_decode", "frame_channel"}),
+    ("torch_ab_r1.py", ["1024", "8", "2048", "4", "1", "--r1s", "0,4"],
+     {"scl_decode", "scl_decode_r1"}),
+    ("torch_bench_wave.py", ["--quick"],
+     {"bp_decode", "bp_wave_fused", "frame_channel"}),
+    ("torch_ab_wavecheck.py", ["4096", "4", "1"],
+     {"bp_wave_fused", "frame_channel"}))
+QUEUE_A_CHKFAST_KERNELS = {"bp_decode", "bp_wave_fused", "frame_channel"}
 
 
 def check(cond, msg):
@@ -1854,35 +1882,43 @@ def phase_probe_compare():
     return worst
 
 
+def run_script(script, argv):
+    """scripts/<script> run as __main__ in this process with argv, every
+    launch count at 0 just before: (its exit code, what it printed, its
+    seconds)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                        script)
+    reset_counts()
+    out, saved = io.StringIO(), sys.argv
+    sys.argv = [path, *argv]
+    code = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name="__main__")
+    except SystemExit as e:
+        code = e.code
+    finally:
+        sys.argv = saved
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return code, out.getvalue(), time.perf_counter() - t0
+
+
 def phase_probe_paths():
     """Run the four probe drivers at short settings in this process, each
     with every launch count at 0 just before; each must exit 0, print its
     JSON lines and launch its kernel.  Returns ({kernel: launches},
     {kernel: the driver's lines})."""
-    root = os.path.dirname(os.path.abspath(__file__))
     counts, printed = {}, {}
     for kernel, script, argv in PROBE_RUNS:
-        path = os.path.join(root, "scripts", script)
-        reset_counts()
-        out, saved = io.StringIO(), sys.argv
-        sys.argv = [path, *argv]
-        code = 0
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(out):
-                runpy.run_path(path, run_name="__main__")
-        except SystemExit as e:
-            code = e.code
-        finally:
-            sys.argv = saved
-        torch.cuda.synchronize()
+        code, text, seconds = run_script(script, argv)
         counts[kernel] = launches(kernel)
-        lines = [json.loads(line) for line in out.getvalue().splitlines()]
+        lines = [json.loads(line) for line in text.splitlines()]
         printed[kernel] = lines
         emit({"probe_run": {"script": f"scripts/{script}", "argv": argv,
                             "exit": code, "launches": counts[kernel],
-                            "seconds": time.perf_counter() - t0,
-                            "lines": lines}})
+                            "seconds": seconds, "lines": lines}})
         check(code == 0 and lines, f"scripts/{script} exited {code}")
         check(counts[kernel] > 0, f"scripts/{script} launched no {kernel}")
     return counts, printed
@@ -2627,6 +2663,77 @@ def phase_studies_quick(card):
     return total
 
 
+def queue_a_quick_results(device):
+    """QUEUE_A_CHKFAST through the ab_chkfast study's run entry, then each
+    QUEUE_A_QUICK driver run in this process with --device, --out (a
+    temporary directory) and --commit added, each with the launch counts at
+    0 just before: {run: {"exit", "launches", "seconds", "lines": the
+    records it wrote, "failed": the study's checks that failed}}."""
+    from polardecoding_tpu_torch import studies
+    from polardecoding_tpu_torch.studies import queue_a
+    from polardecoding_tpu_torch.studies._common import read_lines
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lines, counts, ms = counted(device, lambda: studies.run_study(
+            "ab_chkfast", tmp, device=device, log=None, commit="chip_smoke",
+            **QUEUE_A_CHKFAST))
+        out["ab_chkfast"] = {"exit": 0, "launches": counts, "seconds": ms / 1e3,
+                             "lines": lines,
+                             "failed": studies.ab_chkfast.checks(lines)}
+        for script, argv, _ in QUEUE_A_QUICK:
+            name = script[len("torch_"):-len(".py")]
+            code, _, seconds = run_script(script, [
+                *argv, "--device", str(device), "--out", tmp,
+                "--commit", "chip_smoke"])
+            out[name] = {"exit": code, "seconds": seconds,
+                         "launches": {k: launches(k) for k in kernels()
+                                      if launches(k)},
+                         "lines": read_lines(tmp, queue_a.FILES[name])}
+    return out
+
+
+def phase_queue_a_quick(card):
+    """Queue A's drivers at short settings (queue_a_quick_results): each
+    exits 0 and launches its path's kernels, no other; ab_chkfast's checks
+    hold; verify_drive --fast passes with every check's counts the JAX
+    package's (torch_verify_drive.JAX_CPU); ab_r1's parity lines bit-equal.
+    Returns the launches of each kernel summed over the runs."""
+    t0 = time.perf_counter()
+    results = queue_a_quick_results(DEVICE)
+    verify = [x for x in results["verify_drive"]["lines"] if "check" in x]
+    parity = [x for x in results["ab_r1"]["lines"] if "parity" in x]
+    emit({"queue_a_quick": {
+        "card": card, "seconds": time.perf_counter() - t0,
+        "runs": {name: {k: r[k] for k in ("exit", "launches", "seconds")}
+                 for name, r in results.items()},
+        "chkfast_failed": results["ab_chkfast"]["failed"],
+        "verify": [{k: x[k] for k in ("check", "errbit", "errblock", "frames",
+                                      "pm_ties", "jax_cpu", "same_as_tpu")}
+                   for x in verify],
+        "r1_parity": [{k: x[k] for k in ("variant", "bits_equal", "pm_equal",
+                                         "ties_equal")} for x in parity]}})
+    want = {script[len("torch_"):-len(".py")]: kernels
+            for script, _, kernels in QUEUE_A_QUICK}
+    want["ab_chkfast"] = QUEUE_A_CHKFAST_KERNELS
+    for name, r in results.items():
+        check(r["exit"] == 0, f"queue A {name} exited {r['exit']}")
+        check(set(r["launches"]) == want[name],
+              f"queue A {name} launched {r['launches']}, expected {want[name]}")
+    check(not results["ab_chkfast"]["failed"],
+          f"ab_chkfast: {results['ab_chkfast']['failed']}")
+    check(len(verify) == 4 and all(x["same_as_jax_cpu"] for x in verify),
+          "verify_drive --fast: counts differ from the JAX package's")
+    check(len(parity) == 2 and all(x["bits_equal"] and x["pm_equal"]
+                                   and x["ties_equal"] for x in parity),
+          "ab_r1: a parity line differs")
+    total = {}
+    for r in results.values():
+        for k, n in r["launches"].items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 def multi_rank_paths(mesh):
     """MR_CASES on `mesh` (None: one process on DEVICE), each run twice: a
     warmup (a rank's first launches load its kernels' libraries), then
@@ -3135,6 +3242,7 @@ def main() -> int:
     golden_counts = phase_golden(card)
     phase_reproduce_pins(card)
     studies_counts = phase_studies_quick(card)
+    queue_a_counts = phase_queue_a_quick(card)
     phase_multi_rank(card, times["mc_channel"][0])
     check("jax" not in sys.modules, "the port imported jax")
 
@@ -3168,6 +3276,8 @@ def main() -> int:
                if name in golden_counts else {}),
             **({"studies_launches": studies_counts[name]}
                if name in studies_counts else {}),
+            **({"queue_a_launches": queue_a_counts[name]}
+               if name in queue_a_counts else {}),
             "max_abs_err": worst,
             "matches_plain": worst == 0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})

@@ -1,4 +1,4 @@
-"""The JAX repository's six hardware studies on the card, each the port of a
+"""The JAX repository's hardware studies on the card, each the port of a
 script of scripts/ and held against the TPU's record of the same run:
 
   bler_r1           the rate-1 SCL flavor's 1000-error-block BLER A/B
@@ -8,6 +8,8 @@ script of scripts/ and held against the TPU's record of the same run:
   tie_impact_study  the two PM-tie selection policies on the same frames
   bf16_study        the precision study: float32 against the float64 C
                     engine, and bfloat16 message state against float32
+  ab_chkfast        the fast CHK flavor's BLER A/B (--bler) and its rate
+                    A/B (--perf, the default) against the default flavor
 
   python -m polardecoding_tpu_torch.studies --study all        # the card
   python -m polardecoding_tpu_torch.studies --study bler_r1 --device cpu
@@ -15,7 +17,8 @@ script of scripts/ and held against the TPU's record of the same run:
 
 Each study appends its lines to --out (results/h100/ by default; never
 inside the TPU archive) and resumes what a rerun finds there (_common).
---report-only writes STUDIES.md and PRECISION.md from the records.  The
+--report-only writes STUDIES.md and PRECISION.md from the records, and
+QUEUE_A.md from those of the queue A drivers (studies/queue_a.py).  The
 scripts' environment knobs are flags with the same defaults.
 """
 from __future__ import annotations
@@ -25,11 +28,13 @@ import os
 import sys
 
 from polardecoding_tpu_torch.studies import (
+    ab_chkfast,
     bf16_study,
     bler_r1,
     bler_wavemc,
     es_sanity_hw,
     scl_parity_hw,
+    queue_a,
     tie_impact_study,
 )
 from polardecoding_tpu_torch.studies._common import (
@@ -40,10 +45,11 @@ from polardecoding_tpu_torch.studies._common import (
     read_lines,
 )
 
-# in the order ROADMAP's queue D ports them
+# in the order ROADMAP's queue D ports them, then queue A's study
 STUDIES = {"bler_r1": bler_r1, "bler_wavemc": bler_wavemc,
            "scl_parity_hw": scl_parity_hw, "es_sanity_hw": es_sanity_hw,
-           "tie_impact_study": tie_impact_study, "bf16_study": bf16_study}
+           "tie_impact_study": tie_impact_study, "bf16_study": bf16_study,
+           "ab_chkfast": ab_chkfast}
 # the flags whose default differs between the studies that take them: given
 # only with one study
 PER_STUDY_FLAGS = ("preset", "frames", "snr", "batch")
@@ -69,8 +75,9 @@ def _head(lines: list) -> list:
 
 
 def write_reports(out: str = DEFAULT_OUT) -> dict:
-    """STUDIES.md (the first five studies) and PRECISION.md from the records
-    in out (host only); returns {report: the checks that failed}."""
+    """STUDIES.md (every study but bf16_study), PRECISION.md (bf16_study)
+    and QUEUE_A.md (the queue A drivers' records) from the records in out
+    (host only); returns {report: the checks that failed}."""
     check_out(out)
     done = {}
     recs = {name: read_lines(out, mod.FILE) for name, mod in STUDIES.items()}
@@ -98,6 +105,11 @@ def write_reports(out: str = DEFAULT_OUT) -> dict:
             "All held: every arm within |z| <= 4 of the TPU's."]) + [""]
         _write(os.path.join(out, "PRECISION.md"), body)
         done["PRECISION.md"] = failed
+    queue = queue_a.report(out)
+    if queue is not None:
+        body, failed = queue
+        _write(os.path.join(out, queue_a.REPORT), body)
+        done[queue_a.REPORT] = failed
     return done
 
 
@@ -146,6 +158,10 @@ def parser() -> argparse.ArgumentParser:
     g.add_argument("--flavors-only", action="store_true")
     g = ap.add_argument_group("bf16_study")
     g.add_argument("--blocks", type=int, default=bf16_study.BLOCKS)
+    g = ap.add_argument_group("ab_chkfast (--perf unless --bler alone)")
+    g.add_argument("--perf", action="store_true")
+    g.add_argument("--bler", action="store_true")
+    g.add_argument("--bler-snr", type=float, default=ab_chkfast.BLER_SNR)
     g = ap.add_argument_group("one study only (each study's own default)")
     g.add_argument("--preset", default=None,
                    help="PD_PRESET of bler_wavemc (BP_1024_FASTCHK); "
@@ -156,7 +172,9 @@ def parser() -> argparse.ArgumentParser:
     g.add_argument("--snr", type=float, default=None,
                    help="es_sanity_hw (2.5), tie_impact_study (2.0)")
     g.add_argument("--batch", type=int, default=None,
-                   help="PD_BATCH of bler_wavemc (16384); tie_impact_study (512)")
+                   help="PD_BATCH of bler_wavemc (16384); tie_impact_study "
+                        "(512); ab_chkfast's BLER arms (the preset's "
+                        "batch_per_device, 1024)")
     return ap
 
 

@@ -109,8 +109,9 @@ def test_studies_import_without_jax(tmp_path):
                          timeout=120)
     assert out.returncode == 0, out.stderr
     names = [f"polardecoding_tpu_torch.studies.{m}" for m in (
-        "__main__", "_common", "bf16_study", "bler_r1", "bler_wavemc",
-        "es_sanity_hw", "scl_parity_hw", "tie_impact_study")]
+        "__main__", "_common", "ab_chkfast", "bf16_study", "bler_r1",
+        "bler_wavemc", "es_sanity_hw", "queue_a", "scl_parity_hw",
+        "tie_impact_study")]
     rc = "None" if torch.cuda.is_available() else "2"
     assert out.stdout.strip() == f"{names} {rc} []"
     if rc == "2":
@@ -152,6 +153,39 @@ def test_probe_scripts_exit_nonzero_without_a_card(script):
                          timeout=120)
     assert out.returncode == 2 and out.stdout == ""
     assert "no CUDA device" in out.stderr
+
+
+# ROADMAP queue A's drivers
+QUEUE_A_SCRIPTS = ("torch_verify_drive", "torch_bench_scl", "torch_ab_r1",
+                   "torch_bench_wave", "torch_ab_wavecheck")
+
+
+def test_queue_a_scripts_import_without_jax():
+    """Queue A's drivers import (not run) with JAX, the JAX package and
+    matplotlib refused, and without nvcc: nothing is built on import."""
+    env = dict(os.environ, PYTHONPATH=REPO, PATH="/usr/bin:/bin")
+    env.pop("CUDA_HOME", None)
+    out = subprocess.run([sys.executable, "-c", _IMPORT_SCRIPTS, *QUEUE_A_SCRIPTS],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("script", QUEUE_A_SCRIPTS)
+def test_queue_a_scripts_exit_2_without_a_card(script, tmp_path):
+    """Each queue A driver measures the card: without one, and without
+    --device cpu, it exits 2, prints no result and writes no record."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, os.path.join("scripts", script + ".py"),
+                          "--out", str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 2 and out.stdout == ""
+    assert "no CUDA device (--device cpu runs the plain versions)" in out.stderr
+    assert not os.listdir(tmp_path)
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
