@@ -31,10 +31,8 @@ on more than one rank.  Without a card the run exits non-zero unless
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
-import os
 import time
 
 import torch
@@ -71,27 +69,8 @@ def _sigma(snr_db: float) -> float:
     return 10.0 ** (-snr_db / 20.0)
 
 
-@contextlib.contextmanager
-def _profile(profile_dir, label):
-    """A torch.profiler trace of the block, written to
-    profile_dir/<label>.json (a Chrome trace), when profile_dir is set."""
-    if not profile_dir:
-        yield
-        return
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(profile_dir, f"{label}.json"))
-
-
 def bench_step(preset_name, batch, snr_db=2.0, iters=5, warmup=2,
-               profile_dir=None, encoder="mxu", channel="threefry",
-               device="cuda", mesh=None):
+               encoder="mxu", channel="threefry", device="cuda", mesh=None):
     """frames/s of the full MC pipeline (gen + encode + channel + decode +
     count) for one preset at one SNR, through make_frame_step.
     channel="mc" uses the MC channel kernel (ops/channel_kernel.py).  Over
@@ -105,14 +84,13 @@ def bench_step(preset_name, batch, snr_db=2.0, iters=5, warmup=2,
     sigma = _sigma(snr_db)
     for i in range(warmup):
         int(step(key, i * batch, sigma)[0])
-    with _profile(profile_dir, preset_name):
-        _sync(device)
-        t0 = time.perf_counter()
-        outs = [step(key, (warmup + i) * batch, sigma) for i in range(iters)]
-        # the steps run in order: one host read of the summed counters
-        # proves that all of them finished
-        int(sum(o[0] for o in outs))
-        dt = time.perf_counter() - t0
+    _sync(device)
+    t0 = time.perf_counter()
+    outs = [step(key, (warmup + i) * batch, sigma) for i in range(iters)]
+    # the steps run in order: one host read of the summed counters proves
+    # that all of them finished
+    int(sum(o[0] for o in outs))
+    dt = time.perf_counter() - t0
     return iters * batch / dt
 
 
@@ -185,9 +163,6 @@ def _parser():
     ap.add_argument("--snr", type=float, default=2.0)
     ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--warmup", type=int, default=3)
-    ap.add_argument("--profile", nargs="?", const="chiprun_out/pd_trace",
-                    default=None,
-                    help="write a torch.profiler trace of the BP leg there")
     ap.add_argument("--skip-wave", action="store_true")
     ap.add_argument("--unfused-wave", action="store_true",
                     help="the unfused wave kernel (with --wave-engine fused)")
@@ -232,8 +207,7 @@ def main(argv=None):
         ap.error(str(e))
 
     bp_fixed_fps = bench_step("BP_1024", args.bp_batch, args.snr, args.iters,
-                              args.warmup, profile_dir=args.profile,
-                              encoder=args.encoder, device=device)
+                              args.warmup, encoder=args.encoder, device=device)
     scl_fps = bench_step(args.scl_preset, args.scl_batch, args.snr,
                          args.iters, args.warmup, encoder=args.encoder,
                          channel=args.channel, device=device)

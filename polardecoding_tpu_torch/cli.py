@@ -19,7 +19,10 @@ and `bench` join the process group and split each step's global batch
 (`--batch`) over the ranks; rank 0 alone prints, writes `--out` and the
 checkpoint.  `scale` prints parallel/distributed.scaling_bench's records,
 frames/s at 1, 2, 4, ... ranks (`--distributed` joins the group first).  `run --seeds` replicates the sweep over seeds and prints the
-per-seed records and their pooled average.  `bpr` prints, per SNR point,
+per-seed records and their pooled average.  `run --trace FILE` records the
+port's spans (utils/trace: each point, its steps' enqueue and counter
+reads, the frame step's phases, the CRC work) and writes them to FILE as
+a Chrome trace (JSON, viewable in Perfetto) when the run ends.  `bpr` prints, per SNR point,
 the BLER and the reference's stage-error table E / frames at each
 checkpoint.  `bench` prints {"preset", "frames_per_sec"}: the frame step's
 frames/s (bench.bench_step, 5 steps after 2 of warmup).  `analyze` prints
@@ -69,6 +72,17 @@ def _snr_list(args):
 
 
 def cmd_run(args):
+    from polardecoding_tpu_torch.utils import trace
+
+    if not args.trace:
+        return _sweep(args)
+    with trace.recording():
+        _sweep(args)
+    if _lead():
+        trace.write_chrome_trace(args.trace)
+
+
+def _sweep(args):
     from polardecoding_tpu_torch.configs import preset
     from polardecoding_tpu_torch.parallel.harness import run_multiseed, run_sweep
 
@@ -224,6 +238,9 @@ def main(argv=None):
                          "per-seed records and the pooled average")
     rp.add_argument("--checkpoint", default=None)
     rp.add_argument("--out", default=None)
+    rp.add_argument("--trace", default=None, metavar="FILE",
+                    help="record the run's spans and write them there as a "
+                         "Chrome trace (JSON)")
     rp.add_argument("--device", default="cuda",
                     help="torch device; 'cpu' runs the plain versions")
     rp.add_argument("-v", "--verbose", action="store_true")

@@ -46,6 +46,7 @@ from polardecoding_tpu_torch.models.scl_fast import r1_stages
 from polardecoding_tpu_torch.ops.chk import phi_penalties_both
 from polardecoding_tpu_torch.ops.crc import gf2_matmul
 from polardecoding_tpu_torch.ops.encode import polar_encode
+from polardecoding_tpu_torch.utils import trace
 
 BIG = 1e30  # PM of inactive list slots
 ENGINES = ("auto", "plain")
@@ -264,9 +265,10 @@ def cascl_decode(ch_llr: torch.Tensor, frozen: torch.Tensor,
                  return_ties: bool = False, engine: str = "auto",
                  r1: int = 0, wloop: int = 2):
     """CRC-aided SCL: SCL pass (exact, or the rate-1 flavor with r1 > 0) +
-    CRC-filtered min-PM selection."""
+    CRC-filtered min-PM selection (the span decode.crc_select)."""
     u_all, PM, ties = scl_decode_auto(ch_llr, frozen, list_size=list_size,
                                       return_all=True, return_ties=True,
                                       engine=engine, r1=r1, wloop=wloop)
-    u_hat, _ = cascl_select(u_all, PM, info_positions, crc_R)
+    with trace.span("decode.crc_select"):
+        u_hat, _ = cascl_select(u_all, PM, info_positions, crc_R)
     return (u_hat, ties) if return_ties else u_hat

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from polardecoding_tpu_torch.utils import trace
+
 # g(D) = D^6 + D^5 + 1 (ref: CASCL_128.c:205-220)
 CRC6_EXPONENTS = (0, 5, 6)
 # g(D) = D^24 + D^23 + D^21 + D^20 + D^17 + D^15 + D^13 + D^12 + D^8 + D^4
@@ -74,9 +76,14 @@ def check_matrix(exponents, length: int) -> np.ndarray:
 def gf2_matmul(bits: torch.Tensor, M: np.ndarray) -> torch.Tensor:
     """(bits . M) mod 2, returned in bits' dtype.  The product runs in
     float32, since CUDA has no int64 matmul: 0/1 operands give integer sums
-    of at most k + r < 2^24, exact in float32 (and in TF32)."""
-    acc = bits.to(torch.float32) @ torch.as_tensor(M.astype(np.float32),
-                                                   device=bits.device)
+    of at most k + r < 2^24, exact in float32 (and in TF32).  M goes to
+    bits' device in the span `crc.h2d`, counted in bytes: on the card a
+    copy from pageable memory, which waits for the work queued before it."""
+    x = bits.to(torch.float32)
+    Mf = M.astype(np.float32)
+    with trace.span("crc.h2d", bytes=Mf.nbytes):
+        Md = torch.as_tensor(Mf, device=bits.device)
+    acc = x @ Md
     return (acc.to(torch.int64) & 1).to(bits.dtype)
 
 

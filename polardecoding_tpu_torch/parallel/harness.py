@@ -110,6 +110,7 @@ from polardecoding_tpu_torch.parallel.mesh import (
     one_rank,
     round_up_batch,
 )
+from polardecoding_tpu_torch.utils import trace
 from polardecoding_tpu_torch.utils.pn import PN_PERIOD, pn_sequence
 
 # wave steps run per counter read-back in run_point_waves, as the JAX
@@ -338,16 +339,25 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
         _check_frames(frame_start + batch, f"{preset.name} frame step")
         fidx = frame_start + lanes
         if channel == "mc":
-            llr, u = mc_llr(key, frame_start, fidx, sigma)
-            u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
-            bad = u_hat != u
+            with trace.span("step.channel"):
+                llr, u = mc_llr(key, frame_start, fidx, sigma)
         else:
-            w = _crc_encode(code, payload_from_index(fidx, tables.pn, K))
-            llr = frame_llr(encode(w), key, fidx, sigma, engine)
+            with trace.span("step.payload"):
+                w = payload_from_index(fidx, tables.pn, K)
+            if code.crc is not None:
+                with trace.span("step.crc_encode"):
+                    w = _crc_encode(code, w)
+            with trace.span("step.encode"):
+                x = encode(w)
+            with trace.span("step.channel"):
+                llr = frame_llr(x, key, fidx, sigma, engine)
+        with trace.span("step.decode"):
             u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
-            bad = u_hat[:, tables.info_set] != w
-        pm_ties = no_ties if ties is None else (ties > 0).sum()
-        return mesh.sum(bad.sum(), bad.any(dim=-1).sum(), pm_ties)
+        with trace.span("step.count"):
+            # the MC table's u is the whole frame's; w is the info bits
+            bad = u_hat != u if channel == "mc" else u_hat[:, tables.info_set] != w
+            pm_ties = no_ties if ties is None else (ties > 0).sum()
+            return mesh.sum(bad.sum(), bad.any(dim=-1).sum(), pm_ties)
 
     return step
 
@@ -873,68 +883,83 @@ def run_point(
     frame retiring at its own convergence wave) unless a step_fn is
     given.  `batch` is global (default batch_per_device per rank of the
     mesh), a given step_fn must be built on the same mesh, and only rank 0
-    logs."""
+    logs.
+
+    While tracing is on (utils/trace) the call records the span `point`,
+    and in it `point.step` around each step's call (the host's enqueue) and
+    `point.read` around each wait for counters."""
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
-    mesh = _run_mesh(mesh, device)
-    if (step_fn is None and preset.decoder.kind == "bp"
-            and preset.decoder.bp_early_stop):
-        return run_point_waves(preset, snr_db, batch=batch, mesh=mesh,
-                               error_blocks=error_blocks, max_frames=max_frames,
-                               seed=seed, start_state=start_state, log=log)
-    device = mesh.device
-    sweep = preset.sweep
-    seed = sweep.seed if seed is None else seed
-    target = sweep.error_blocks if error_blocks is None else error_blocks
-    cap = sweep.max_frames if max_frames is None else max_frames
-    if batch is None:
-        batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
-    if step_fn is None:
-        step_fn = make_frame_step(preset, batch, device, mesh=mesh)
-    if mesh.rank:
-        log = None
+    with trace.span("point"):
+        mesh = _run_mesh(mesh, device)
+        if (step_fn is None and preset.decoder.kind == "bp"
+                and preset.decoder.bp_early_stop):
+            return run_point_waves(preset, snr_db, batch=batch, mesh=mesh,
+                                   error_blocks=error_blocks,
+                                   max_frames=max_frames, seed=seed,
+                                   start_state=start_state, log=log)
+        device = mesh.device
+        sweep = preset.sweep
+        seed = sweep.seed if seed is None else seed
+        target = sweep.error_blocks if error_blocks is None else error_blocks
+        cap = sweep.max_frames if max_frames is None else max_frames
+        if batch is None:
+            batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
+        if step_fn is None:
+            step_fn = make_frame_step(preset, batch, device, mesh=mesh)
+        if mesh.rank:
+            log = None
 
-    sigma = float(10.0 ** (-snr_db / 20.0))
-    key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
-    res = start_state or PointResult(preset.name, snr_db, 0, 0, 0, seed)
-    t0 = time.perf_counter()
+        sigma = float(10.0 ** (-snr_db / 20.0))
+        key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
+        res = start_state or PointResult(preset.name, snr_db, 0, 0, 0, seed)
+        t0 = time.perf_counter()
 
-    def take(counts, frames):
-        res.errbit += int(counts[0])
-        res.errblock += int(counts[1])
-        res.pm_ties += int(counts[2])
-        res.frames += frames
+        def take(counts, frames):
+            res.errbit += int(counts[0])
+            res.errblock += int(counts[1])
+            res.pm_ties += int(counts[2])
+            res.frames += frames
 
-    if sync_every == 1:
+        if sync_every == 1:
+            while res.errblock < target and res.frames < cap:
+                with trace.span("point.step", anchor=True):
+                    out = step_fn(key, res.frames, sigma)
+                with trace.span("point.read"):
+                    counts = [int(c) for c in out[:3]]
+                take(counts, batch)
+                if log:
+                    log(
+                        f"{preset.name} @ {snr_db:.2f} dB: frames={res.frames} "
+                        f"errblock={res.errblock} bler={res.bler:.3e}"
+                    )
+            res.elapsed_s += time.perf_counter() - t0
+            return res
+
+        issued = res.frames  # frames run (res.frames lags one chunk)
+        pending = None
         while res.errblock < target and res.frames < cap:
-            take(step_fn(key, res.frames, sigma), batch)
+            total = 0
+            for i in range(sync_every):
+                with trace.span("point.step", anchor=True):
+                    total = total + torch.stack(
+                        step_fn(key, issued + i * batch, sigma))
+            issued += batch * sync_every
+            if pending is not None:
+                with trace.span("point.read"):
+                    counts = pending()
+                take(counts, batch * sync_every)
+            pending = _read_later(total)
             if log:
-                log(
-                    f"{preset.name} @ {snr_db:.2f} dB: frames={res.frames} "
-                    f"errblock={res.errblock} bler={res.bler:.3e}"
-                )
+                log(f"{preset.name} @ {snr_db:.2f} dB: issued={issued} "
+                    f"counted={res.frames} errblock={res.errblock} "
+                    f"bler={res.bler:.3e}")
+        if pending is not None:
+            with trace.span("point.read"):
+                counts = pending()
+            take(counts, batch * sync_every)
         res.elapsed_s += time.perf_counter() - t0
         return res
-
-    issued = res.frames  # frames run (res.frames lags one chunk)
-    pending = None
-    while res.errblock < target and res.frames < cap:
-        total = 0
-        for i in range(sync_every):
-            total = total + torch.stack(step_fn(key, issued + i * batch, sigma))
-        issued += batch * sync_every
-        if pending is not None:
-            take(pending(), batch * sync_every)
-        pending = _read_later(total)
-        if log:
-            log(f"{preset.name} @ {snr_db:.2f} dB: issued={issued} "
-                f"counted={res.frames} errblock={res.errblock} "
-                f"bler={res.bler:.3e}")
-    if pending is not None:
-        take(pending(), batch * sync_every)
-    res.elapsed_s += time.perf_counter() - t0
-    return res
-
 
 def run_sweep(
     preset: Preset,
