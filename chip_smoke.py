@@ -691,7 +691,7 @@ def llr_frames(name, batch, snr_db, device, seed=7, N=None):
                                                      prng_key,
                                                      sigma_from_ebn0_db)
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu, scatter_info
-    from polardecoding_tpu_torch.parallel.harness import (_crc_encode,
+    from polardecoding_tpu_torch.parallel.harness import (_crc_encoder,
                                                           code_tables,
                                                           payload_from_index)
 
@@ -700,7 +700,7 @@ def llr_frames(name, batch, snr_db, device, seed=7, N=None):
         code = dataclasses.replace(code, N=N, K=N // 2)
     tables = code_tables(code, device)
     fidx = torch.arange(batch, device=device)
-    w = _crc_encode(code, payload_from_index(fidx, tables.pn, code.K))
+    w = _crc_encoder(code, device)(payload_from_index(fidx, tables.pn, code.K))
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
     llr = frame_llr(encode_info_mxu(w, tables.g_rows), key, fidx,
                     sigma_from_ebn0_db(snr_db))
@@ -1732,7 +1732,7 @@ def phase_frame_channel_timing(card):
                                                      random_bits,
                                                      sigma_from_ebn0_db)
     from polardecoding_tpu_torch.ops.encode import encode_info_mxu
-    from polardecoding_tpu_torch.parallel.harness import (_crc_encode,
+    from polardecoding_tpu_torch.parallel.harness import (_crc_encoder,
                                                           code_tables,
                                                           payload_from_index)
 
@@ -1740,7 +1740,7 @@ def phase_frame_channel_timing(card):
     N = p.code.N
     tables = code_tables(p.code, DEVICE)
     fidx = torch.arange(SCL_BATCH, device=DEVICE)
-    x = encode_info_mxu(_crc_encode(p.code, payload_from_index(
+    x = encode_info_mxu(_crc_encoder(p.code, DEVICE)(payload_from_index(
         fidx, tables.pn, p.code.K)), tables.g_rows)
     key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
     sigma = sigma_from_ebn0_db(MAIN_SNR)

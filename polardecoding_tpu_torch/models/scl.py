@@ -246,8 +246,9 @@ def cascl_select(u_all: torch.Tensor, PM: torch.Tensor,
     paths pick min PM; if none pass, global min PM.
 
     u_all: [B, L, N]; info_positions: [K + r] int64 tensor of the bit
-    channels carrying [message || CRC] in encode order; crc_R: [K + r, r]
-    numpy check matrix (ops/crc.check_matrix).  The syndrome is a float32
+    channels carrying [message || CRC] in encode order; crc_R: the [K + r, r]
+    check matrix (ops/crc.check_matrix) as numpy, or as float32 on u_all's
+    device (ops/crc.device_matrix), used as it is.  The syndrome is a float32
     product of 0/1 values, exact for sums below 2^24.  Returns
     (u_hat [B, N], passed [B] bool)."""
     cw = u_all[..., info_positions]  # [B, L, K+r]

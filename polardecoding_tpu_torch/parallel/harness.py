@@ -97,6 +97,9 @@ from polardecoding_tpu_torch.ops.crc import (
     check_matrix,
     crc_encode_multiplicative,
     crc_encode_systematic,
+    device_matrix,
+    multiplicative_encode_matrix,
+    systematic_parity_matrix,
 )
 from polardecoding_tpu_torch.ops.encode import (
     encode_info_mxu,
@@ -231,7 +234,8 @@ def _make_decoder(preset: Preset, tables: CodeTables, engine: str) -> Callable:
             llr, frozen, list_size=dec.list_size, return_ties=True,
             engine=engine, **flavor)
     if dec.kind == "cascl":
-        crc_R = check_matrix(code.crc, code.num_info)
+        crc_R = device_matrix(check_matrix(code.crc, code.num_info),
+                              frozen.device)
         return lambda llr: cascl_decode(
             llr, frozen, tables.info_set, crc_R, list_size=dec.list_size,
             return_ties=True, engine=engine, **flavor)
@@ -253,12 +257,17 @@ def _check_llr_dtype(llr_dtype, device: torch.device, engine: str):
                          "another dtype")
 
 
-def _crc_encode(code, payload):
+def _crc_encoder(code, device) -> Callable:
+    """Payload [B, K] -> [B, K'] on `device`: the code's CRC in its style,
+    or the payload itself without one.  The matrix goes to the device here,
+    once, and every call uses it as it is."""
     if code.crc is None:
-        return payload
+        return lambda payload: payload
     if code.crc_style == "systematic":
-        return crc_encode_systematic(payload, code.crc)
-    return crc_encode_multiplicative(payload, code.crc)
+        Gc = device_matrix(systematic_parity_matrix(code.crc, code.K), device)
+        return lambda payload: crc_encode_systematic(payload, code.crc, Gc)
+    E = device_matrix(multiplicative_encode_matrix(code.crc, code.K), device)
+    return lambda payload: crc_encode_multiplicative(payload, code.crc, E)
 
 
 def _mc_mode_tables(code, device):
@@ -268,7 +277,7 @@ def _mc_mode_tables(code, device):
     N, K = code.N, code.K
     pn = pn_sequence()
     pays = np.stack([pn[(m + np.arange(K)) % PN_PERIOD] for m in range(PN_PERIOD)])
-    w = _crc_encode(code, torch.as_tensor(pays))
+    w = _crc_encoder(code, "cpu")(torch.as_tensor(pays))
     u = scatter_info(w, torch.as_tensor(code_info_set(code), dtype=torch.int64), N)
     pad = torch.zeros((128 - PN_PERIOD, N), dtype=torch.float32)
     utab = torch.cat([u.to(torch.float32), pad])
@@ -318,6 +327,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
         tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
     decode = _make_decoder(preset, tables, engine)
+    crc_encode = _crc_encoder(code, device)
     lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
     no_ties = torch.zeros((), dtype=torch.int64, device=device)
     if channel == "mc":
@@ -346,7 +356,7 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
                 w = payload_from_index(fidx, tables.pn, K)
             if code.crc is not None:
                 with trace.span("step.crc_encode"):
-                    w = _crc_encode(code, w)
+                    w = crc_encode(w)
             with trace.span("step.encode"):
                 x = encode(w)
             with trace.span("step.channel"):
@@ -383,6 +393,7 @@ def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
     tables = code_tables(code, device)
     encode = _make_encoder(encoder, tables, N)
     decode = _make_decoder(preset, tables, engine)
+    crc_encode = _crc_encoder(code, device)
     lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
 
     def per_snr(snr_idx, values):
@@ -398,7 +409,7 @@ def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
         _check_frames(frame_start + batch, f"{preset.name} multi-SNR step")
         fidx = frame_start + lanes
         snr_idx = fidx % num_snr
-        w = _crc_encode(code, payload_from_index(fidx, tables.pn, K))
+        w = crc_encode(payload_from_index(fidx, tables.pn, K))
         llr = frame_llr(encode(w), key, fidx, sigmas, engine)
         u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
         bad = u_hat[:, tables.info_set] != w

@@ -1,5 +1,6 @@
 """Port host data against the JAX package: presets, construction tables, PN
-sequence, generator matrices and CRC, all equal."""
+sequence, generator matrices and CRC, all equal; the CRC matrices on the
+device, built once a step."""
 import dataclasses
 
 import jax.numpy as jnp
@@ -17,8 +18,11 @@ from polardecoding_tpu.utils import pn as jpn
 from polardecoding_tpu.utils import sequences as jseq
 from polardecoding_tpu_torch import configs as tcfg
 from polardecoding_tpu_torch.analysis import construction as tcons
+from polardecoding_tpu_torch.models import scl as tscl
+from polardecoding_tpu_torch.ops import channel as tch
 from polardecoding_tpu_torch.ops import crc as tcrc
 from polardecoding_tpu_torch.ops import encode as tenc
+from polardecoding_tpu_torch.parallel import harness as th
 from polardecoding_tpu_torch.utils import _q_tables as tq
 from polardecoding_tpu_torch.utils import gf2 as tgf2
 from polardecoding_tpu_torch.utils import pn as tpn
@@ -93,3 +97,61 @@ def test_crc_matrices_and_encoders(exps):
         got = tf(torch.as_tensor(m), exps)
         assert got.dtype == torch.int8
         assert (got.numpy() == np.asarray(jf(jnp.asarray(m), exps))).all()
+
+
+# a CA-SCL preset of each CRC the presets use: (preset, exponents, style)
+CRC_CASES = {
+    "crc6_multiplicative": ("CASCL_128_L8", tcrc.CRC6_EXPONENTS, "multiplicative"),
+    "crc24_multiplicative": ("CASCL_1024_L8", tcrc.CRC24_EXPONENTS, "multiplicative"),
+    "crc24_systematic": ("CASCL_1024_sys_L8", tcrc.CRC24_EXPONENTS, "systematic"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CRC_CASES))
+def test_crc_ops_give_the_same_bits_with_a_prebuilt_matrix(case):
+    name, exps, style = CRC_CASES[case]
+    code = tcfg.preset(name).code
+    assert code.crc == exps and code.crc_style == style
+    k = code.K
+    rng = np.random.default_rng(5)
+    m = torch.as_tensor(rng.integers(0, 2, (9, k)).astype(np.int8))
+    E = tcrc.multiplicative_encode_matrix(exps, k)
+    Gc = tcrc.systematic_parity_matrix(exps, k)
+    R = tcrc.check_matrix(exps, code.num_info)
+    for M in (E, Gc):
+        want = tcrc.gf2_matmul(m, M)
+        got = tcrc.gf2_matmul(m, tcrc.device_matrix(M, "cpu"))
+        assert got.dtype == torch.int8 and torch.equal(got, want)
+    with pytest.raises(ValueError):
+        tcrc.gf2_matmul(m, torch.as_tensor(E))  # uint8: not the prebuilt form
+    mult = tcrc.crc_encode_multiplicative(m, exps)
+    assert torch.equal(tcrc.crc_encode_multiplicative(
+        m, exps, tcrc.device_matrix(E, "cpu")), mult)
+    syst = tcrc.crc_encode_systematic(m, exps)
+    assert torch.equal(tcrc.crc_encode_systematic(
+        m, exps, tcrc.device_matrix(Gc, "cpu")), syst)
+    # paths 0 and 2 of the first 5 frames carry codewords: some frames pass
+    # on one path or two, the rest on none
+    L = 4
+    info = torch.as_tensor(tcons.code_info_set(code), dtype=torch.int64)
+    u_all = torch.as_tensor(rng.integers(0, 2, (9, L, code.N)).astype(np.int8))
+    words = syst if style == "systematic" else mult
+    u_all[:5, 0, info] = words[:5]
+    u_all[:3, 2, info] = words[5:8]
+    PM = torch.as_tensor(rng.random((9, L)).astype(np.float32))
+    want_u, want_ok = tscl.cascl_select(u_all, PM, info, R)
+    got_u, got_ok = tscl.cascl_select(u_all, PM, info, tcrc.device_matrix(R, "cpu"))
+    assert want_ok.tolist() == [True] * 5 + [False] * 4
+    assert torch.equal(got_u, want_u) and torch.equal(got_ok, want_ok)
+
+
+@pytest.mark.parametrize("case", sorted(CRC_CASES))
+def test_a_ca_scl_step_copies_its_crc_matrices_only_when_built(case):
+    before = tcrc.COPIES
+    step = th.make_frame_step(tcfg.preset(CRC_CASES[case][0]), 2, device="cpu")
+    built = tcrc.COPIES
+    assert built == before + 2  # the encode matrix and the check matrix
+    key = tch.prng_key(7, "cpu")
+    for i in range(3):
+        step(key, 2 * i, 0.8)
+    assert tcrc.COPIES == built

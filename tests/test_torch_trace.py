@@ -62,31 +62,34 @@ def test_each_point_is_one_tree(recorded):
         if s is not root:
             p = by_id[s.parent]
             assert p.t0 <= s.t0 and s.t1 <= p.t1, (s.name, p.name)
-    assert [s.name for s in _children(spans, root)] == ["point.step", "point.read"] * STEPS
+    # the step is built in the point: its two CRC matrices' copies come first
+    assert [s.name for s in _children(spans, root)] == (
+        ["crc.h2d"] * 2 + ["point.step", "point.read"] * STEPS)
     for step in (s for s in spans if s.name == "point.step"):
         assert [s.name for s in _children(spans, step)] == STEP_SPANS
         (dec,) = [s for s in _children(spans, step) if s.name == "step.decode"]
         assert [s.name for s in _children(spans, dec)] == ["decode.crc_select"]
 
 
-def test_a_steps_crc_copies_are_the_encode_and_check_matrices(recorded):
+def test_the_crc_matrices_are_copied_when_the_step_is_built_not_in_a_step(recorded):
+    # run_point builds the step inside its `point` span: the encode and
+    # check matrices go to the device there, once, and no step copies one
     spans = recorded[1]
     code = preset(CASCL).code
     want = (multiplicative_encode_matrix(code.crc, code.K).astype(np.float32).nbytes
             + check_matrix(code.crc, code.num_info).astype(np.float32).nbytes)
     by_id = {s.id: s for s in spans}
 
-    def step_of(s):
-        while s.name != "point.step":
+    def in_step(s):
+        while s.parent is not None:
             s = by_id[s.parent]
-        return s.id
+            if s.name == "point.step":
+                return True
+        return False
 
-    per = {}
-    for s in spans:
-        if s.name == "crc.h2d":
-            assert by_id[s.parent].name in ("step.crc_encode", "decode.crc_select")
-            per[step_of(s)] = per.get(step_of(s), 0) + s.counts["bytes"]
-    assert list(per.values()) == [want] * STEPS
+    copies = [s for s in spans if s.name == "crc.h2d"]
+    assert not [s for s in copies if in_step(s)]
+    assert len(copies) == 2 and sum(s.counts["bytes"] for s in copies) == want
 
 
 def _bp_one_iteration():
@@ -159,8 +162,12 @@ def test_cli_run_trace_writes_a_chrome_trace(tmp_path, capsys):
     assert {e["name"] for e in events} == {"point", "point.step", "point.read",
                                            "decode.crc_select", "crc.h2d", *STEP_SPANS}
     assert all(e["ph"] == "X" and e["dur"] >= 0 and e["ts"] >= 0 for e in events)
-    assert {e["args"]["point"] for e in events} == {e["args"]["id"] for e in events
-                                                   if e["name"] == "point"}
+    # run_sweep builds the step before its points: the CRC matrices' two
+    # copies are spans of their own, every other span lies in a point
+    points = {e["args"]["id"] for e in events if e["name"] == "point"}
+    outside = [e for e in events if e["args"]["point"] not in points]
+    assert [e["name"] for e in outside] == ["crc.h2d"] * 2
+    assert all(e["args"]["point"] == e["args"]["id"] for e in outside)
     trace.clear()
     _point(steps=1)
     assert trace.spans() == []
