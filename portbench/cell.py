@@ -1,6 +1,8 @@
-"""Drives the program, polardecoding_tpu_torch, through one cell: set-up,
-the window of BLER points through its run_point, and the records that the
-check and the per-layer metrics read.
+"""Drives the program, polardecoding_tpu_torch, through one cell of the
+frame-step entry: set-up, the window of BLER points through its run_point,
+and the records that the check and the per-layer metrics read.  The window's
+loop is every entry's; an entry's Program gives it `caller`
+(portbench/waves.py is the early-stop entry's).
 
 The program is imported inside `Program`, never at module level, so the
 harness's other parts (traffic, check, reference) load without it.
@@ -57,6 +59,7 @@ class Window:
     error: Optional[str] = None
     profile: object = None  # torch.profiler.profile over the traced points
     traced: tuple = ()  # the traced points' indices
+    kept: Optional[dict] = None  # an entry's records for its check
 
     @property
     def seconds(self) -> float:
@@ -90,19 +93,37 @@ def preset_differences(preset, config: dict) -> list:
     return out
 
 
+def load_preset(config: dict):
+    """The program's preset that the configuration names, refused where it
+    departs from the configuration's code and decoder."""
+    from polardecoding_tpu_torch.configs import preset
+
+    got = preset(config["preset"])
+    wrong = preset_differences(got, config)
+    if wrong:
+        raise ValueError(f"preset {config['preset']} is not the "
+                         f"configuration {config['name']}: {wrong}")
+    return got
+
+
+def early_stop(preset) -> bool:
+    """Whether run_point hands the preset to the wave engine when it is
+    given no frame step (an early-stop BP preset)."""
+    return preset.decoder.kind == "bp" and preset.decoder.bp_early_stop
+
+
 class Program:
     """The system under test for one configuration and one batch: its
     frame step, built once, and its run_point."""
 
     def __init__(self, config: dict, batch: int, device):
-        from polardecoding_tpu_torch.configs import preset
         from polardecoding_tpu_torch.parallel import harness
 
-        self.preset = preset(config["preset"])
-        wrong = preset_differences(self.preset, config)
-        if wrong:
-            raise ValueError(f"preset {config['preset']} is not the "
-                             f"configuration {config['name']}: {wrong}")
+        self.preset = load_preset(config)
+        if early_stop(self.preset):
+            raise ValueError(f"{config['name']}: users run an early-stop "
+                             "preset through run_point's wave engine, not a "
+                             "frame step (portbench/waves.py)")
         opts = dict(config.get("step", {}))
         self.sync_every = int(opts.pop("sync_every", 1))
         self.device = torch.device(device)
@@ -131,20 +152,16 @@ class Program:
         cur = [0]
         hard = [float("inf")]
 
-        def step(key, frame_start, sigma):
-            t0 = time.perf_counter()
-            out = self.step(key, frame_start, sigma)
-            t1 = time.perf_counter()
-            steps.append(StepRec(cur[0], int(frame_start), out, t0, t1))
+        def overran(t1):
             if t1 > hard[0]:
                 raise Overrun(f"point {cur[0]} still running {grace} s after "
                               "the window's end")
-            return out
 
         first = int(traffic.trace["from_point"])
         traced = tuple(range(first, first + int(traffic.trace["points"]))) if trace else ()
         stack = contextlib.ExitStack()
         w = Window(points, steps, 0.0, 0.0, traced=traced)
+        call = self.caller(w, cur, overran, traffic)
         t_start = time.perf_counter()
         deadline = t_start + seconds
         hard[0] = deadline + grace
@@ -158,10 +175,7 @@ class Program:
                 n0 = len(steps)
                 t0 = time.perf_counter()
                 try:
-                    res = self.run_point(self.preset, plan.snr_db, batch=plan.batch,
-                                         device=self.device, step_fn=step,
-                                         error_blocks=plan.error_blocks,
-                                         seed=plan.seed, sync_every=self.sync_every)
+                    res = call(plan)
                 finally:
                     t1 = time.perf_counter()
                     points.append(PointRec(plan, None, t0, t1, n0, len(steps)))
@@ -179,6 +193,25 @@ class Program:
             stack.close()
         w.t_start, w.t_end = t_start, points[-1].t1
         return w
+
+    def caller(self, w: Window, cur: list, overran, traffic: Traffic):
+        """plan -> the program's PointResult of one point: run_point with
+        the frame step, each step's call recorded in w.steps (point cur[0])
+        and overran(its return time) called after it."""
+        def step(key, frame_start, sigma):
+            t0 = time.perf_counter()
+            out = self.step(key, frame_start, sigma)
+            t1 = time.perf_counter()
+            w.steps.append(StepRec(cur[0], int(frame_start), out, t0, t1))
+            overran(t1)
+            return out
+
+        def call(plan: Point):
+            return self.run_point(self.preset, plan.snr_db, batch=plan.batch,
+                                  device=self.device, step_fn=step,
+                                  error_blocks=plan.error_blocks,
+                                  seed=plan.seed, sync_every=self.sync_every)
+        return call
 
 
 def _start_profile(stack: contextlib.ExitStack):

@@ -102,5 +102,16 @@ def compare(window: Window, traffic: Traffic, reference, seed: int) -> tuple:
     return {k: (v, LIMITS[k]) for k, v in gaps.items()}, picks, failed + len(bad)
 
 
+def control(window: Window, traffic: Traffic, reference, seed: int, dtype) -> tuple:
+    """({name: (value, limit)}, picks) of the control: the counters of the
+    steps drawn from the seed decoded by the reference in `dtype`, put in
+    the program's place, against the configured reference's."""
+    picks = sample_steps(window, traffic, seed)
+    want = reference_counts(window, picks, reference)
+    got = reference_counts(window, picks, reference, dtype=dtype)
+    gaps = step_gaps(got, list(range(len(picks))), want)
+    return {k: (v, LIMITS[k]) for k, v in gaps.items()}, picks
+
+
 def correct(compared: dict) -> bool:
     return all(v <= lim for v, lim in compared.values())

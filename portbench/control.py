@@ -8,11 +8,12 @@ the configured float32, put in the program's place.
         --seeds <n> ... --control-seeds <n> ...
 
 Each seed runs a window of --seconds at the cell's own load through the
-program, and the check draws its steps from it as a run does.  For a
-control seed the counters compared are the bfloat16 reference's of those
-steps, against the float32 reference's, each held to its limit in
-check.LIMITS: a control seed has to come out not correct.  One JSON line
-a seed, with its `correct`, then a summary line.  Needs a CUDA card; with --device cpu it runs on the CPU
+program, and the configuration's check (portbench/entry.py) draws its
+steps from it as a run does.  For a control seed the numbers compared are
+the bfloat16 reference's on those steps against the float32 reference's,
+each held to its limit in the check's LIMITS: a control seed has to come
+out not correct.  One JSON line a seed, with its `correct`, then a
+summary line.  Needs a CUDA card; with --device cpu it runs on the CPU
 (test sizes)."""
 from __future__ import annotations
 
@@ -23,9 +24,7 @@ import time
 
 import torch
 
-from portbench import check
-from portbench.cell import Program
-from portbench.reference.step import Reference
+from portbench import entry
 from portbench.spec import load_cell
 from portbench.traffic import Traffic
 
@@ -37,9 +36,10 @@ def readings(cell, seeds, control_seeds, seconds: float, device) -> list:
     "correct"}]: `correct` as check.correct decides it from the gaps and
     check.LIMITS, for the control as if its counters were the program's."""
     device = torch.device(device)
-    prog = Program(cell.config, Traffic(cell.traffic, 0).batch, device)
+    reference = entry.reference(cell.config, device)
+    check = entry.checker(cell.config)
+    prog = entry.program(cell.config, Traffic(cell.traffic, 0).batch, device)
     prog.warm(Traffic(cell.traffic, 0))
-    reference = Reference(cell.config, device)
     out = []
     for kind, group in (("program", seeds), ("control", control_seeds)):
         for seed in group:
@@ -49,11 +49,8 @@ def readings(cell, seeds, control_seeds, seconds: float, device) -> list:
             if kind == "program":
                 compared, picks, _ = check.compare(win, traffic, reference, seed)
             else:
-                picks = check.sample_steps(win, traffic, seed)
-                want = check.reference_counts(win, picks, reference)
-                got = check.reference_counts(win, picks, reference, dtype=CONTROL_DTYPE)
-                gaps = check.step_gaps(got, list(range(len(picks))), want)
-                compared = {k: (v, check.LIMITS[k]) for k, v in gaps.items()}
+                compared, picks = check.control(win, traffic, reference, seed,
+                                                CONTROL_DTYPE)
             line = {"seed": seed, "kind": kind,
                     "gaps": {k: v for k, (v, _) in compared.items()},
                     "correct": check.correct(compared), "picks": picks,
@@ -61,6 +58,22 @@ def readings(cell, seeds, control_seeds, seconds: float, device) -> list:
             print(json.dumps(line), flush=True)
             out.append(line)
     return out
+
+
+def summarize(rows: list, limits: dict) -> dict:
+    """Each gap's least and largest reading, and the verdicts, by kind."""
+    summary = {}
+    for kind in ("program", "control"):
+        for name in limits:
+            vals = [r["gaps"][name] for r in rows if r["kind"] == kind and name in r["gaps"]]
+            if vals:
+                summary[f"{kind}.{name}"] = {"min": min(vals), "max": max(vals),
+                                             "n": len(vals)}
+        verdicts = [r["correct"] for r in rows if r["kind"] == kind]
+        if verdicts:
+            summary[f"{kind}.correct"] = {"true": sum(verdicts),
+                                          "false": len(verdicts) - sum(verdicts)}
+    return summary
 
 
 def main(argv=None) -> int:
@@ -74,19 +87,9 @@ def main(argv=None) -> int:
     if args.device.startswith("cuda") and not torch.cuda.is_available():
         print("portbench.control: no CUDA card", file=sys.stderr)
         return 2
-    rows = readings(load_cell(args.workload), args.seeds, args.control_seeds,
-                    args.seconds, args.device)
-    summary = {}
-    for kind in ("program", "control"):
-        for name in check.LIMITS:
-            vals = [r["gaps"][name] for r in rows if r["kind"] == kind and name in r["gaps"]]
-            if vals:
-                summary[f"{kind}.{name}"] = {"min": min(vals), "max": max(vals),
-                                             "n": len(vals)}
-        verdicts = [r["correct"] for r in rows if r["kind"] == kind]
-        if verdicts:
-            summary[f"{kind}.correct"] = {"true": sum(verdicts),
-                                          "false": len(verdicts) - sum(verdicts)}
+    cell = load_cell(args.workload)
+    rows = readings(cell, args.seeds, args.control_seeds, args.seconds, args.device)
+    summary = summarize(rows, entry.checker(cell.config).LIMITS)
     print(json.dumps({"summary": summary, "workload": args.workload,
                       "card": torch.cuda.get_device_name() if torch.cuda.is_available()
                       else "cpu"}), flush=True)

@@ -31,15 +31,19 @@ def _merge(up, lo, N):
     return out.reshape(out.shape[:-3] + (N,))
 
 
-def bp_decode(llr: torch.Tensor, frozen: torch.Tensor, iters: int,
-              chk_fn=chk) -> torch.Tensor:
-    """u_hat [B, N] int8 (frozen bits 0) of the LLRs [B, N] in their dtype;
-    chk_fn(a, b) is the check node (a counting wrapper may stand in)."""
+def messages(llr: torch.Tensor, frozen: torch.Tensor) -> tuple:
+    """The fresh message lists (Ls, Rs) of LLRs [B, N] in their dtype."""
     B, N = llr.shape
     n = N.bit_length() - 1
     zero = torch.zeros_like(llr)
-    Ls = [zero] * n + [llr]
-    Rs = [torch.where(frozen, FROZEN_R, 0.0).to(llr.dtype).expand(B, N)] + [zero] * n
+    return ([zero] * n + [llr],
+            [torch.where(frozen, FROZEN_R, 0.0).to(llr.dtype).expand(B, N)] + [zero] * n)
+
+
+def iterate(Ls: list, Rs: list, iters: int, chk_fn=chk) -> None:
+    """`iters` flooding iterations, the lists updated in place."""
+    n = len(Ls) - 1
+    N = Ls[0].shape[-1]
     for _ in range(iters):
         for i in range(n):
             ru, rd = _halves(Rs[i], i)
@@ -49,5 +53,18 @@ def bp_decode(llr: torch.Tensor, frozen: torch.Tensor, iters: int,
             ru, rd = _halves(Rs[i], i)
             lu, ld = _halves(Ls[i + 1], i)
             Ls[i] = _merge(chk_fn(lu, ld + rd), ld + chk_fn(ru, lu), N)
+
+
+def decision(Ls: list, Rs: list, frozen: torch.Tensor) -> torch.Tensor:
+    """u_hat [B, N] int8: [L[0] + R[0] < 0] at the info bits, 0 frozen."""
     soft = Ls[0] + Rs[0]
     return torch.where(frozen, 0, (soft < 0).to(torch.int8)).to(torch.int8)
+
+
+def bp_decode(llr: torch.Tensor, frozen: torch.Tensor, iters: int,
+              chk_fn=chk) -> torch.Tensor:
+    """u_hat [B, N] int8 (frozen bits 0) of the LLRs [B, N] in their dtype;
+    chk_fn(a, b) is the check node (a counting wrapper may stand in)."""
+    Ls, Rs = messages(llr, frozen)
+    iterate(Ls, Rs, iters, chk_fn)
+    return decision(Ls, Rs, frozen)

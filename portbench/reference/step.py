@@ -24,6 +24,10 @@ class Reference:
             raise ValueError("the reference's channel is the frame step's "
                              "threefry channel")
         self.decoder = dict(config["decoder"])
+        if self.decoder.get("early_stop"):
+            raise ValueError("the step reference decodes fixed iterations; an "
+                             "early-stop configuration names its own reference "
+                             "(\"reference\": \"bp_es\")")
         if self.decoder.get("r1", 0):
             raise ValueError("the reference decodes exact SCL only (r1 = 0)")
         if self.decoder["kind"] == "bp" and self.decoder.get("flavor", "minsum_lut") != "minsum_lut":

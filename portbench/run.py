@@ -5,11 +5,14 @@ NVIDIA H100 cards: one run of one cell of BENCHMARK.json.
 
 from the root of a checkout.  Set-up imports the program, loads its
 kernels from the build cache in the checkout and Python's bytecode from
-.portbench_cache/pycache there (the first run of a checkout compiles both), builds the cell's frame step once and runs the mix's
-warm-up steps.  The window is a closed loop of BLER points, each one call
-of the program's run_point with that step, until --seconds have passed;
-the point in flight then runs to its end.  Afterwards the steps drawn from
---seed are compared with the plain reference (portbench/check.py).  With
+.portbench_cache/pycache there (the first run of a checkout compiles both),
+builds the cell's frame step once (an early-stop configuration's points
+build their own wave steppers, as run_point does: portbench/entry.py) and
+runs the mix's warm-up steps.  The window is a closed loop of BLER points, each one call of the
+program's run_point with that step, until --seconds have passed; the point
+in flight then runs to its end.  Afterwards the calls drawn from --seed are
+compared with the configuration's plain reference (portbench/check.py,
+portbench/wave_check.py).  With
 --trace 1 the mix's traced points run under torch.profiler and the cell's
 per-layer metrics are printed instead of its end-to-end ones.
 
@@ -94,10 +97,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     import torch
 
     marks = list(marks)
-    from portbench import check, tracing
-    from portbench.cell import Program
+    from portbench import entry, tracing
     from portbench.context import Context
-    from portbench.reference.step import Reference
     from portbench.spec import metric_reader
     from portbench.traffic import Traffic
     import polardecoding_tpu_torch.parallel.harness  # noqa: F401
@@ -105,7 +106,10 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
     marks.append(("imports", time.perf_counter()))
     device = torch.device(device)
     traffic = Traffic(cell.traffic, seed)
-    prog = Program(cell.config, traffic.batch, device)
+    # the reference first: a configuration that it refuses never runs
+    reference = entry.reference(cell.config, device)
+    check = entry.checker(cell.config)
+    prog = entry.program(cell.config, traffic.batch, device)
     marks.append(("step built", time.perf_counter()))
     prog.warm(traffic)
     marks.append(("warm-up", time.perf_counter()))
@@ -127,7 +131,6 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device,
         torch.cuda.empty_cache()
 
     info = card(device)
-    reference = Reference(cell.config, device)
     compared, picks, failed = check.compare(win, traffic, reference, seed)
     done = [p for p in win.points if p.result is not None]
     print(f"portbench {cell.name}: seed {seed}, {len(win.points)} points "

@@ -10,7 +10,9 @@ from portbench.tests.conftest import ROOT
 FORBIDDEN = {"jax", "jaxlib", "flax", "polardecoding_tpu"}
 MODULES = ["portbench.run", "portbench.cell", "portbench.check", "portbench.context",
            "portbench.control", "portbench.spec", "portbench.tracing",
-           "portbench.traffic", "portbench.peaks", "portbench.reference.step"]
+           "portbench.traffic", "portbench.peaks", "portbench.reference.step",
+           "portbench.entry", "portbench.waves", "portbench.wave_check",
+           "portbench.reference.bp_es"]
 
 
 def top_level_after(code: str) -> set:
@@ -33,7 +35,7 @@ def test_harness_and_metrics_load_no_jax():
 
 
 def test_reference_loads_nothing_of_the_program():
-    names = top_level_after("import portbench.reference.step")
+    names = top_level_after("import portbench.reference.step, portbench.reference.bp_es")
     assert not names & (FORBIDDEN | {"polardecoding_tpu_torch"})
 
 

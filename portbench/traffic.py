@@ -59,6 +59,7 @@ class Traffic:
         self.trace = dict(params["trace"])
         if min(self.batch, self.error_blocks, self.size) < 1:
             raise ValueError("batch, error_blocks and pool.points must be >= 1")
+        self.seed = int(seed)
         self.rng = np.random.default_rng([int(seed) & (2**63 - 1), 0x7AFF1C])
         self._order: list[int] = []
 
