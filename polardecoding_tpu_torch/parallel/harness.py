@@ -799,7 +799,13 @@ def run_point_waves(
     frames as the JAX package's run_point_waves.  `batch` is global
     (default batch_per_device per rank of the mesh); the counters every
     decision reads are global, so every rank stops and drains at the same
-    step."""
+    step.
+
+    While tracing is on (utils/trace) the call records, inside run_point's
+    `point` span, `waves.build` around the stepper's build (counts `batch`
+    and `wave_iters`), `waves.step` around each step's enqueue (opened with
+    a clock anchor), `waves.read` around each wait for a chunk's counters
+    and `waves.drain` around each drain and its counters' read."""
     sweep = preset.sweep
     seed = sweep.seed if seed is None else seed
     target = sweep.error_blocks if error_blocks is None else error_blocks
@@ -810,16 +816,17 @@ def run_point_waves(
         batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
     if mesh.rank:
         log = None
-    if engine == "mc":
-        init, step, drain = make_wave_step_mc(preset, batch, wave_iters, device,
-                                              noise=noise, cadence=cadence,
-                                              spares=spares, mesh=mesh)
-    elif engine == "fused":
-        init, step, drain = make_wave_step(preset, batch, wave_iters, device,
-                                           fused=fused, check_every=check_every,
-                                           mesh=mesh)
-    else:
-        raise ValueError(f"unknown wave engine {engine!r}")
+    with trace.span("waves.build", batch=batch, wave_iters=wave_iters):
+        if engine == "mc":
+            init, step, drain = make_wave_step_mc(
+                preset, batch, wave_iters, device, noise=noise,
+                cadence=cadence, spares=spares, mesh=mesh)
+        elif engine == "fused":
+            init, step, drain = make_wave_step(
+                preset, batch, wave_iters, device, fused=fused,
+                check_every=check_every, mesh=mesh)
+        else:
+            raise ValueError(f"unknown wave engine {engine!r}")
     sigma = float(10.0 ** (-snr_db / 20.0))
     key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
     res = start_state or PointResult(preset.name, snr_db, 0, 0, 0, seed)
@@ -841,10 +848,13 @@ def run_point_waves(
                           f"{preset.name} wave engine")
         total = 0
         for _ in range(SYNC_EVERY):
-            carry, out = step(key, sigma, carry)
-            total = total + torch.stack(out)
+            with trace.span("waves.step", anchor=True):
+                carry, out = step(key, sigma, carry)
+                total = total + torch.stack(out)
         if pending is not None:
-            take(pending())
+            with trace.span("waves.read"):
+                counts = pending()
+            take(counts)
         pending = _read_later(total)
         if log:
             # counted frames lag one chunk behind the steps run
@@ -852,11 +862,14 @@ def run_point_waves(
                 f"counted={res.frames} errblock={res.errblock} "
                 f"bler={res.bler:.3e}")
     if pending is not None:
-        take(pending())
+        with trace.span("waves.read"):
+            counts = pending()
+        take(counts)
     remaining = batch
     while remaining > 0:
-        carry, out = drain(sigma, carry)
-        counts = torch.stack(out).tolist()
+        with trace.span("waves.drain"):
+            carry, out = drain(sigma, carry)
+            counts = torch.stack(out).tolist()
         take(counts)
         remaining = counts[3]
     res.elapsed_s += time.perf_counter() - t0

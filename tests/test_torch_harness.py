@@ -152,7 +152,19 @@ def test_early_stop_preset_frame_step_equals_jax():
     assert got == want
 
 
-def test_entry_runs():
+@pytest.fixture
+def one_thread():
+    """One torch thread: the plain decoder's tensors are [256, 1024], and
+    test workers side by side, each with a thread a core, oversubscribe the
+    CPU (six workers of eight threads on eight cores ran this test about
+    18 times slower than one thread each)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def test_entry_runs(one_thread):
     """The counterpart of __graft_entry__.entry: the BP_1024 step at batch
     256 with its arguments (key from the preset's seed, frame 0, 2.0 dB),
     run on the CPU through the plain decoder."""
