@@ -1534,13 +1534,18 @@ def phase_wave_main(label, run, kernel):
     counts of the path's kernel's launches and of the frame channel's read
     just after.  The frame channel draws a step's fresh LLRs: once a step
     on the fused engine, once a step and at init on the unfused one, never
-    on the MC engine."""
+    on the MC engine.  Each drain of the fused engine, and no other call,
+    gives the wave kernel a live mask (bp_wave_kernel.MASKED)."""
+    from polardecoding_tpu_torch.ops.bp_wave_kernel import MASKED
+
     reset_counts()
+    masked = MASKED["bp_wave_fused"]
     t0 = time.perf_counter()
     with counted_steppers() as made:
         res = run()
     torch.cuda.synchronize()
     counts = {kernel: launches(kernel), "frame_channel": launches("frame_channel")}
+    masked = MASKED["bp_wave_fused"] - masked
     want = {"fused": made["step"], "unfused": made["step"] + made["init"],
             "mc": 0}[made["engine"]]
     from polardecoding_tpu_torch.configs import preset
@@ -1548,7 +1553,11 @@ def phase_wave_main(label, run, kernel):
     emit({"main_path": {"path": label, "batch": WAVE_BATCH,
                         "point": res.to_json(preset(res.preset).code.num_info),
                         "seconds": time.perf_counter() - t0,
-                        "launches": counts, "stepper": made}})
+                        "launches": counts, "masked": masked,
+                        "stepper": made}})
+    want_masked = made["drain"] if made["engine"] == "fused" else 0
+    check(masked == want_masked,
+          f"{label}: {masked} masked wave launches, want {want_masked}")
     check(res.errblock >= WAVE_ERROR_BLOCKS, f"{label} stopped early: {res}")
     check(BLER_RANGE[0] <= res.bler <= BLER_RANGE[1],
           f"{label}: BLER {res.bler} at {MAIN_SNR} dB outside {BLER_RANGE}")

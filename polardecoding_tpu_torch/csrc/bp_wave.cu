@@ -34,6 +34,11 @@
 // bp_wave_mc.cu: they touch the shared rows at each lane's home positions,
 // so no block barrier stands around them.  Every branch on the vote or the
 // slot's flags is uniform across the block.
+// The fused kernel may be given a live mask: a slot that is neither live
+// nor retired is held (the drain's slots whose frames are already counted,
+// harness.make_wave_step): its block writes done = 0 and a zero u_hat row
+// and returns before load_slot, so its planes are neither read nor written
+// and it runs no iteration.  Without a mask every slot runs.
 // N = 1024 has an instance compiled with constant n.
 //
 // What bounds it on this card: instruction issue in the sweep, as
@@ -53,6 +58,7 @@ struct WaveArgs {
   float* state;           // [2(n+1), B, N], in place
   const float* llr;       // [B, N], read for the retired slots (fused)
   const uint8_t* retire;  // [B] (fused)
+  const uint8_t* live;    // [B] or null: every slot live (fused)
   int8_t* u;              // [B, N] (fused)
   uint8_t* done;          // [B] (fused)
   int B, n, iters, check_every;
@@ -77,6 +83,17 @@ __global__ void __launch_bounds__(kMaxThreads, 3) bp_wave_kernel(WaveArgs a) {
   // plane s of the slot: L[s] is plane s, R[s] plane n + 1 + s
   auto st = [&](int s) { return a.state + s * plane + row; };
   if (!FUSED && a.iters == 0) return;
+  // a held slot: done and u_hat 0, its state untouched
+  if (FUSED && a.live != nullptr && !a.live[slot] && !a.retire[slot]) {
+#pragma unroll
+    for (int k = 0; k < kPairs; ++k) {
+      const int q = 2 * (t + k * T);
+      a.u[row + q] = 0;
+      a.u[row + q + 1] = 0;
+    }
+    if (t == 0) a.done[slot] = 0;
+    return;
+  }
 
   // the merge: a retired slot restarts from its LLRs (every plane 0 but
   // L[n], and R[0])
@@ -179,20 +196,23 @@ extern "C" int bp_wave_shape(int N, int flavor, int fused, int check_every,
       blocks_per_sm, kernel, *threads, *smem));
 }
 
-// state: [2(n+1), B, N] f32, updated in place.  fused = 0: llr, retire, u
-// and done are unused (may be null).  fused = 1: llr [B, N] f32 (read for
-// the retired slots only), retire [B] bool, u [B, N] int8 and done [B] bool
-// written.  N a power of two in [8, 1024].  Launches on `stream` without
-// synchronising; returns the cudaError_t code.
+// state: [2(n+1), B, N] f32, updated in place.  fused = 0: llr, retire,
+// live, u and done are unused (may be null).  fused = 1: llr [B, N] f32
+// (read for the retired slots only), retire [B] bool, live [B] bool or null
+// (a slot neither live nor retired is held), u [B, N] int8 and done [B]
+// bool written.  N a power of two in [8, 1024].  Launches on `stream`
+// without synchronising; returns the cudaError_t code.
 extern "C" int bp_wave_launch(float* state, const float* llr,
-                              const uint8_t* retire, int8_t* u, uint8_t* done,
+                              const uint8_t* retire, const uint8_t* live,
+                              int8_t* u, uint8_t* done,
                               int B, int N, int iters, int flavor, int fused,
                               int check_every, cudaStream_t stream) {
   const int n = bp::log2_of(N);
   if (B <= 0 || n < 0 || iters < 0 || check_every < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const WaveArgs a{state, llr, retire, u, done, B, n, iters, check_every};
+  const WaveArgs a{state, llr, retire, live, u, done, B, n, iters,
+                   check_every};
   Kernel kernel;
   size_t smem;
   const cudaError_t err = prepare(flavor, n, fused, check_every, &kernel, &smem);

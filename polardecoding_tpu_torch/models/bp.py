@@ -216,11 +216,27 @@ def bp_wave_plain(state: torch.Tensor, iters: int = 8,
 
 
 def bp_wave_fused_plain(state, ch_llr, retire, iters: int = 8,
-                        flavor: str = "minsum_lut", check_every: int = 0):
+                        flavor: str = "minsum_lut", check_every: int = 0,
+                        live=None):
     """Merge -> advance -> decide (the plain version of bp_wave_fused_jnp):
     (state', u_hat [B, N] int8, done [B] bool).  check_every > 0 checks the
     G-matrix rule every that many iterations and at the last, and latches a
-    frame's (u_hat, done) at its first passing check."""
+    frame's (u_hat, done) at its first passing check.  live [B] bool, if
+    given, holds the slots where it and retire are False, as the kernel
+    does: they are not run, and come back with their state as it was, done
+    False and u_hat 0."""
+    if live is not None:
+        run = live | retire
+        s, u, d = bp_wave_fused_plain(state[:, run], ch_llr[run], retire[run],
+                                      iters, flavor, check_every)
+        state = state.clone()
+        state[:, run] = s
+        u_hat = torch.zeros(state.shape[1:], dtype=torch.int8,
+                            device=state.device)
+        u_hat[run] = u
+        done = torch.zeros_like(retire)
+        done[run] = d
+        return state, u_hat, done
     chk_fn = CHK_FNS[flavor]
     n = state.shape[0] // 2 - 1
     state = wave_merge(state, ch_llr, retire)
@@ -260,19 +276,21 @@ def bp_wave(state, iters: int = 8, flavor: str = "minsum_lut",
 
 def bp_wave_fused(state, ch_llr, retire, iters: int = 8,
                   flavor: str = "minsum_lut", check_every: int = 0,
-                  engine: str = "auto"):
+                  engine: str = "auto", live=None):
     """The fused wave step (refill-merge + K iterations + G-matrix decide)
     -> (state', u_hat, done): the CUDA kernel on a CUDA tensor (state
     updated in place), the plain version on a CPU tensor or with
-    engine="plain"."""
+    engine="plain".  live [B] bool, if given, holds the slots where it and
+    retire are False (bp_wave_fused_plain)."""
     _check_engine(engine)
     if engine == "plain" or state.device.type == "cpu":
         return bp_wave_fused_plain(state, ch_llr, retire, iters, flavor,
-                                   check_every)
+                                   check_every, live)
     from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_fused_cuda
 
     return bp_wave_fused_cuda(state, ch_llr, retire, iters=iters,
-                              flavor=flavor, check_every=check_every)
+                              flavor=flavor, check_every=check_every,
+                              live=live)
 
 
 # ---------------------------------------------------------------------------

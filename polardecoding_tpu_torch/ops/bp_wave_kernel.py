@@ -6,8 +6,10 @@ and bp_wave_fused_plain.
 
 Both update the state in place, as the TPU kernels do through
 input_output_aliases, and return it.  `LAUNCHES` counts each kernel's
-launches, so a run can show that its main path went through them;
-`bp_wave_shape` reports a kernel's launch shape on the card.
+launches, so a run can show that its main path went through them; `MASKED`
+counts the fused launches given a live mask (a wave entry's drain), which
+hold the slots neither live nor retired; `bp_wave_shape` reports a
+kernel's launch shape on the card.
 """
 from __future__ import annotations
 
@@ -19,12 +21,13 @@ from polardecoding_tpu_torch.ops import _build
 from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, launch_shape
 
 LAUNCHES = {"bp_wave_fused": 0, "bp_wave": 0}
+MASKED = {"bp_wave_fused": 0}
 SOURCE = "polardecoding_tpu_torch/csrc/bp_wave.cu"
 REPLACES = {"bp_wave_fused": "polardecoding_tpu/ops/pallas/bp_kernel.py:306",
             "bp_wave": "polardecoding_tpu/ops/pallas/bp_kernel.py:726"}
 
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
 
 
 def bp_wave_shape(N: int, flavor: str = "minsum_lut", fused: bool = False,
@@ -51,7 +54,7 @@ def check_state(state: torch.Tensor, who: str):
     return B, N
 
 
-def _launch(name, state, llr, retire, u, done, iters, flavor, fused,
+def _launch(name, state, llr, retire, live, u, done, iters, flavor, fused,
             check_every):
     B, N = state.shape[1:]
     if flavor not in FLAVORS:
@@ -62,9 +65,11 @@ def _launch(name, state, llr, retire, u, done, iters, flavor, fused,
         return
     ptr = (lambda t: None if t is None else t.data_ptr())
     _build.launch("bp_wave", _ARGTYPES, state.device, state.data_ptr(),
-                  ptr(llr), ptr(retire), ptr(u), ptr(done), B, N, iters,
-                  FLAVORS[flavor], fused, check_every)
+                  ptr(llr), ptr(retire), ptr(live), ptr(u), ptr(done), B, N,
+                  iters, FLAVORS[flavor], fused, check_every)
     LAUNCHES[name] += 1
+    if live is not None:
+        MASKED[name] += 1
 
 
 def bp_wave_cuda(state: torch.Tensor, iters: int = 8,
@@ -76,31 +81,41 @@ def bp_wave_cuda(state: torch.Tensor, iters: int = 8,
     synchronising; raises on any input the kernel does not take and when
     the launch is refused."""
     check_state(state, "bp_wave_cuda")
-    _launch("bp_wave", state, None, None, None, None, iters, flavor, 0, 0)
+    _launch("bp_wave", state, None, None, None, None, None, iters, flavor,
+            0, 0)
     return state
+
+
+def _check_mask(mask, B, device, name):
+    if (mask.dtype != torch.bool or tuple(mask.shape) != (B,)
+            or mask.device != device):
+        raise ValueError(f"{name} must be a [{B}] bool tensor on the state's "
+                         "device")
+    return mask.contiguous()
 
 
 def bp_wave_fused_cuda(state: torch.Tensor, llr: torch.Tensor,
                        retire: torch.Tensor, iters: int = 8,
                        flavor: str = "minsum_lut", tile: int = 0,
                        interpret: bool = False, rolls: int = 3,
-                       check_every: int = 0):
+                       check_every: int = 0, live=None):
     """The fused wave on the card: the slots where retire [B] is True
     restart from llr [B, N], then `iters` iterations and the G-matrix
     decide.  Returns (state, updated in place; u_hat [B, N] int8; done [B]
-    bool).  tile, interpret and rolls are the TPU kernel's knobs, accepted
+    bool).  live [B] bool, if given, holds every slot where it and retire
+    are False: its state is left as it is, its done False and its u_hat
+    row 0.  tile, interpret and rolls are the TPU kernel's knobs, accepted
     and unused."""
     B, N = check_state(state, "bp_wave_fused_cuda")
     if (llr.dtype != torch.float32 or tuple(llr.shape) != (B, N)
             or llr.device != state.device):
         raise ValueError(f"llr must be a [{B}, {N}] float32 tensor on the "
                          "state's device")
-    if (retire.dtype != torch.bool or tuple(retire.shape) != (B,)
-            or retire.device != state.device):
-        raise ValueError(f"retire must be a [{B}] bool tensor on the state's "
-                         "device")
+    retire = _check_mask(retire, B, state.device, "retire")
+    if live is not None:
+        live = _check_mask(live, B, state.device, "live")
     u_hat = torch.empty((B, N), dtype=torch.int8, device=state.device)
     done = torch.empty(B, dtype=torch.bool, device=state.device)
-    _launch("bp_wave_fused", state, llr.contiguous(), retire.contiguous(),
-            u_hat, done, iters, flavor, 1, check_every)
+    _launch("bp_wave_fused", state, llr.contiguous(), retire, live, u_hat,
+            done, iters, flavor, 1, check_every)
     return state, u_hat, done

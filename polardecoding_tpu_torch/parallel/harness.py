@@ -549,7 +549,9 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
     for every slot each step (only the retired slots use them), as in the
     JAX package.  Per-step counters equal fused=False's.  check_every > 0
     (fused only) also checks inside the wave and latches a frame at its
-    first passing check.  engine: "auto" or "plain", as make_frame_step's.
+    first passing check.  The fused drain gives the kernel a live mask, so
+    the slots whose frames are already counted are held, not run: their
+    state is left as it is.  engine: "auto" or "plain", as make_frame_step's.
     The carry's state is updated in place on the card: do not reuse a carry
     after stepping it.
 
@@ -635,13 +637,14 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
 
         def drain_fused(sigma, carry):
             # the pending retirees were counted by the last step: their
-            # slots die instead of refilling
+            # slots die instead of refilling.  The kernel holds the dead
+            # slots (their done and u_hat 0), so a drain runs the live ones
             state, fidx, iters_done, next_fidx, retire, start = carry
             fidx = torch.where(retire, -1, fidx)
             no_retire = torch.zeros_like(retire)
             state, u_hat, done = bp_wave_fused(
                 state, torch.zeros((b, N), device=device), no_retire,
-                check_every=check_every, **wave)
+                check_every=check_every, live=fidx >= 0, **wave)
             iters_done = iters_done + wave_iters
             fidx, out = drain_count(u_hat, fidx, done, iters_done)
             return (state, fidx, iters_done, next_fidx, no_retire, start), out

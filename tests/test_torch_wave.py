@@ -88,6 +88,45 @@ def test_wave_fused_bit_equal_to_jax(N, B, check_every, flavor):
     assert d.dtype == torch.bool and (d.numpy() == np.asarray(jd)).all()
 
 
+@pytest.mark.parametrize("N,B,check_every,flavor",
+                         [(128, 32, ce, f) for ce in (0, 4) for f in FLAVORS]
+                         + [(1024, 8, 0, "minsum_lut")])
+def test_wave_fused_live_mask_holds_the_dead_slots(N, B, check_every, flavor):
+    """bp_wave_fused's live mask on the CPU (the plain version): with every
+    slot live the output is the unmasked one bit for bit; with a mask, a
+    slot neither live nor retired comes back with its state as it went in
+    (-0.0 included), done False and u_hat 0, and every other slot, retired
+    ones marked dead included, equals the unmasked run and
+    bp_wave_fused_jnp's.  No kernel is launched or counted as masked."""
+    state, _, llr, retire = _state(N, B, seed=3 * N + check_every)
+    retire[:4] = (False, True, False, True)  # slot 3: retired, not live
+    live = np.arange(B) % 3 != 0
+    held = ~live & ~retire
+    assert held[0] and held.sum() < B
+    js, ju, jd = jbp.bp_wave_fused_jnp(jnp.asarray(state), jnp.asarray(llr),
+                                       jnp.asarray(retire), iters=8,
+                                       flavor=flavor, check_every=check_every)
+    launches = dict(bp_wave_kernel.LAUNCHES), dict(bp_wave_kernel.MASKED)
+    kw = dict(iters=8, flavor=flavor, check_every=check_every)
+    unmasked = tbp.bp_wave_fused(_t(state), _t(llr), _t(retire), **kw)
+    every = tbp.bp_wave_fused(_t(state), _t(llr), _t(retire),
+                              live=torch.ones(B, dtype=torch.bool), **kw)
+    s, u, d = tbp.bp_wave_fused(_t(state), _t(llr), _t(retire),
+                                live=_t(live), **kw)
+    assert (dict(bp_wave_kernel.LAUNCHES), dict(bp_wave_kernel.MASKED)) == launches
+    assert _bits_equal(unmasked[0], js) and _bits_equal(every[0], js)
+    for got in (unmasked, every):
+        assert (got[1].numpy() == np.asarray(ju)).all()
+        assert (got[2].numpy() == np.asarray(jd)).all()
+    assert _bits_equal(s[:, held], state[:, held])
+    assert (_bits_equal(s[:, ~held], np.asarray(js)[:, ~held])
+            and not _bits_equal(s, js))
+    assert u.dtype == torch.int8 and (u[held] == 0).all()
+    assert (u[~held].numpy() == np.asarray(ju)[~held]).all()
+    assert d.dtype == torch.bool and not d[held].any()
+    assert (d[~held].numpy() == np.asarray(jd)[~held]).all()
+
+
 # each cadence, spares count and noise source; each case costs two JAX
 # compiles of the unrolled twin (drain off and on)
 @pytest.mark.parametrize("cadence,spares,source",

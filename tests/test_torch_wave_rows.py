@@ -13,17 +13,22 @@ against both packages on the CPU:
 - chip_smoke.wave_work charges a wave the planes it needs: L[1..n] and
   R[0] in and L[0..n-1] and R[1..n] out per kept slot, R[0] and the LLR row
   in and L[n] out besides per retired slot of the fused wave; chip_smoke
-  counts the retired slots from the mask that the timed fused wave is given.
+  counts the retired slots from the mask that the timed fused wave is given;
+- on a card, the fused kernel given a live mask holds the slots neither
+  live nor retired, as bp_wave_fused_plain does.
+
+JAX is imported inside the tests that compare with it, so the card test
+also runs where JAX is absent:
+
+  python -m pytest --noconftest -q -m cuda tests/test_torch_wave_rows.py
 """
 import os
 import sys
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from polardecoding_tpu.models import bp as jbp
 from polardecoding_tpu_torch.models import bp as tbp
 from polardecoding_tpu_torch.utils.sequences import frozen_mask
 
@@ -50,22 +55,33 @@ def _dead(n):
     return [0] + list(range(n + 2, 2 * n + 2))
 
 
-def _inputs(N, flavor, seed):
+def _jax_fused(state, llr, retire, **kw):
+    """JAX's bp_wave_fused_jnp on the port's CPU tensors."""
+    import jax.numpy as jnp
+
+    from polardecoding_tpu.models import bp as jbp
+
+    return jbp.bp_wave_fused_jnp(jnp.asarray(state.numpy()),
+                                 jnp.asarray(llr.numpy()),
+                                 jnp.asarray(retire.numpy()), **kw)
+
+
+def _inputs(N, flavor, seed, b=B):
     """A state three iterations in from random LLRs (a -0.0 planted in every
     plane of slot 0), fresh LLRs (-0.0 in slot 1) and every odd slot
-    retired."""
+    retired, for b slots."""
     rng = np.random.default_rng(seed)
     frozen = torch.as_tensor(frozen_mask(N, N // 2))
 
     def llr():
-        return torch.as_tensor((rng.normal(size=(B, N)) * 2.5 + 2.0)
+        return torch.as_tensor((rng.normal(size=(b, N)) * 2.5 + 2.0)
                                .astype(np.float32))
 
     state = tbp.bp_wave_plain(tbp.wave_init_state(llr(), frozen), 3, flavor)
     state[:, 0, 1] = -0.0
     fresh = llr()
     fresh[1, :2] = -0.0
-    return state, fresh, torch.arange(B) % 2 == 1
+    return state, fresh, torch.arange(b) % 2 == 1
 
 
 def _garbage(state, seed):
@@ -115,10 +131,8 @@ def test_fused_decide_reads_dead_planes_at_zero_iterations(N, flavor):
         assert not _same(clean[1][kept], dirty[1][kept])
         assert _same(clean[1][retire], dirty[1][retire])
         assert _same(clean[0][:, retire], dirty[0][:, retire])
-        want = jbp.bp_wave_fused_jnp(jnp.asarray(noisy.numpy()),
-                                     jnp.asarray(llr.numpy()),
-                                     jnp.asarray(retire.numpy()), iters=0,
-                                     flavor=flavor, check_every=ce)
+        want = _jax_fused(noisy, llr, retire, iters=0, flavor=flavor,
+                          check_every=ce)
         for a, b in zip(dirty, want):
             assert _same(a, b), ce
 
@@ -145,11 +159,8 @@ def test_fused_merge_keeps_negative_zero_and_equals_jax(N, flavor):
     for iters in ((0,) if flavor == "spa" else (0, 1)):
         for ce in (0, 1):
             got = tbp.bp_wave_fused_plain(state, llr, retire, iters, flavor, ce)
-            want = jbp.bp_wave_fused_jnp(jnp.asarray(state.numpy()),
-                                         jnp.asarray(llr.numpy()),
-                                         jnp.asarray(retire.numpy()),
-                                         iters=iters, flavor=flavor,
-                                         check_every=ce)
+            want = _jax_fused(state, llr, retire, iters=iters,
+                              flavor=flavor, check_every=ce)
             for a, b in zip(got, want):
                 assert _same(a, b), (iters, ce)
 
@@ -238,3 +249,51 @@ def test_chip_smoke_bounds_the_timed_fused_wave(monkeypatch):
     kept = 31 * 4096
     assert (64 - int(retire.sum())) * kept < work["bp_wave_fused"][0]
     assert work["bp_wave"][0] == 64 * kept
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [64, 1024])
+def test_fused_kernel_holds_the_dead_slots_on_card(N):
+    """On a card: bp_wave_fused_cuda with random live and retire masks (both
+    min-sum flavors, check_every 0 and 4; at N = 64 a slot is one warp)
+    equals bp_wave_fused_plain with the same masks bit for bit: state, u_hat
+    and done.  A held slot's planes are unchanged byte for byte, and its
+    done and u_hat are written 0 over freed memory of their sizes filled
+    with 0x5A.  MASKED counts a masked launch once and an unmasked one not
+    at all; LAUNCHES counts both."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.ops import bp_wave_kernel
+
+    slots = 96
+    rng = np.random.default_rng(N)
+    for flavor in ("minsum_lut", "minsum_lut_fast"):
+        state, llr, _ = (x.cuda() for x in _inputs(N, flavor, N, slots))
+        retire = torch.as_tensor(rng.random(slots) < 0.3, device="cuda")
+        live = torch.as_tensor(rng.random(slots) < 0.4, device="cuda")
+        held = ~live & ~retire
+        assert 0 < int(held.sum()) < slots and bool((retire & ~live).any())
+        for ce, mask in ((0, live), (4, live), (4, None)):
+            want = tbp.bp_wave_fused_plain(state, llr, retire, 8, flavor, ce,
+                                           mask)
+            got_state = state.clone()
+            # the wrapper's u_hat and done, allocated in its order, reuse
+            # these blocks
+            junk = [torch.full(shape, 0x5A, dtype=torch.uint8, device="cuda")
+                    for shape in ((slots, N), (slots,))]
+            del junk
+            counts = (bp_wave_kernel.LAUNCHES["bp_wave_fused"],
+                      bp_wave_kernel.MASKED["bp_wave_fused"])
+            got = bp_wave_kernel.bp_wave_fused_cuda(
+                got_state, llr, retire, 8, flavor, check_every=ce, live=mask)
+            torch.cuda.synchronize()
+            assert (bp_wave_kernel.LAUNCHES["bp_wave_fused"],
+                    bp_wave_kernel.MASKED["bp_wave_fused"]) == (
+                        counts[0] + 1, counts[1] + (mask is not None))
+            assert got[0].data_ptr() == got_state.data_ptr()
+            assert _same(got[0].cpu(), want[0].cpu()), (flavor, ce)
+            assert got[1].dtype == torch.int8 and (got[1] == want[1]).all()
+            assert got[2].dtype == torch.bool and (got[2] == want[2]).all()
+            if mask is not None:
+                assert _same(got_state[:, held].cpu(), state[:, held].cpu())
+                assert (got[1][held] == 0).all() and not got[2][held].any()

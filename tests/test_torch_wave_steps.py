@@ -62,6 +62,63 @@ def test_wave_step_counters_equal_jax():
     assert sum(r[2] for r in rows[True, 0]) > 64
 
 
+def _float_bits(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("check_every", [0, 1])
+def test_fused_drain_holds_the_dead_slots(monkeypatch, check_every):
+    """make_wave_step's fused drain on the CPU (BP_128, B=64, after six
+    steps): each call gives the wave the live mask fidx >= 0, taken after
+    the pending retirees are killed, and leaves every dead slot's state as
+    it was, bit for bit; call by call its (errbit, errblock, frames,
+    remaining), fidx, iters_done and live slots' state equal those of the
+    same drain with every slot run, which changes the dead slots' state."""
+    tp = tcfg.preset("BP_128")
+    init, step, drain = th.make_wave_step(tp, 64, 8, "cpu",
+                                          check_every=check_every)
+    key = prng_key(tp.sweep.seed)
+    carry = init(key, 0, SIGMA_2DB)
+    for _ in range(6):
+        carry, _ = step(key, SIGMA_2DB, carry)
+    fused = th.bp_wave_fused
+
+    def drained(hold):
+        """[(out, fidx, iters_done, live given, state in, state out)]"""
+        given = []
+
+        def wave(state, *args, live=None, **kw):
+            given.append((live, state.clone()))
+            return fused(state, *args, live=live if hold else None, **kw)
+
+        monkeypatch.setattr(th, "bp_wave_fused", wave)
+        c, calls, rem = tuple(t.clone() for t in carry), [], 64
+        while rem > 0:
+            c, out = drain(SIGMA_2DB, c)
+            calls.append(([int(v) for v in out], c[1], c[2], *given[-1], c[0]))
+            rem = int(out[3])
+            assert len(calls) < 20, "drain did not terminate"
+        return calls
+
+    held, run = drained(True), drained(False)
+    assert len(held) == len(run) > 1
+    fidx = torch.where(carry[4], -1, carry[1])
+    mixed, moved = 0, 0
+    for h, r in zip(held, run):
+        live = h[3]
+        assert torch.equal(live, fidx >= 0) and torch.equal(r[3], live)
+        assert h[0] == r[0] and torch.equal(h[1], r[1])
+        assert torch.equal(h[2], r[2])
+        assert torch.equal(_float_bits(h[5][:, ~live]),
+                           _float_bits(h[4][:, ~live]))
+        assert torch.equal(_float_bits(h[5][:, live]),
+                           _float_bits(r[5][:, live]))
+        mixed += bool(live.any() and not live.all())
+        moved += not torch.equal(r[5][:, ~live], r[4][:, ~live])
+        fidx = h[1]
+    assert mixed and moved
+
+
 def test_wave_step_mc_counters_equal_jax():
     """make_wave_step_mc(noise="threefry") draws jax.random.bits, as the JAX
     package's make_wave_step_mc does on the CPU: equal per-step counters and
