@@ -37,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from polardecoding_tpu_torch.ops._build import use_kernel
 from polardecoding_tpu_torch.ops.chk import chk, chk_exact, chk_fast
 from polardecoding_tpu_torch.ops.encode import polar_encode
 from polardecoding_tpu_torch.ops.noise import counter_bits, mc_llr
@@ -88,11 +89,6 @@ def bp_iteration(Ls, Rs, chk_fn):
     return Ls, Rs
 
 
-def _check_engine(engine: str):
-    if engine not in ("auto", "plain"):
-        raise ValueError(f"unknown BP engine {engine!r}")
-
-
 def bp_decode(ch_llr: torch.Tensor, frozen: torch.Tensor, iters: int = 100,
               flavor: str = "minsum_lut", early_stop_every: int = 0):
     """Decode a batch of frames with the plain PyTorch engine.
@@ -142,8 +138,7 @@ def bp_decode_auto(ch_llr: torch.Tensor, frozen: torch.Tensor, iters: int = 100,
     """Decode with the hand-written CUDA kernel for a CUDA tensor and with the
     plain version for a CPU tensor; engine="plain" forces the plain version
     on any device (the JAX package's engine="jnp")."""
-    _check_engine(engine)
-    if engine == "plain" or ch_llr.device.type == "cpu":
+    if not use_kernel(ch_llr, engine, "bp_decode_auto"):
         return bp_decode(ch_llr, frozen, iters=iters, flavor=flavor,
                          early_stop_every=early_stop_every)
     from polardecoding_tpu_torch.ops.bp_kernel import bp_decode_cuda
@@ -266,8 +261,7 @@ def bp_wave(state, iters: int = 8, flavor: str = "minsum_lut",
     """Advance packed state by `iters` iterations: the CUDA kernel on a CUDA
     tensor (which updates `state` in place and returns it), the plain
     version on a CPU tensor or with engine="plain"."""
-    _check_engine(engine)
-    if engine == "plain" or state.device.type == "cpu":
+    if not use_kernel(state, engine, "bp_wave"):
         return bp_wave_plain(state, iters, flavor)
     from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_cuda
 
@@ -282,8 +276,7 @@ def bp_wave_fused(state, ch_llr, retire, iters: int = 8,
     updated in place), the plain version on a CPU tensor or with
     engine="plain".  live [B] bool, if given, holds the slots where it and
     retire are False (bp_wave_fused_plain)."""
-    _check_engine(engine)
-    if engine == "plain" or state.device.type == "cpu":
+    if not use_kernel(state, engine, "bp_wave_fused"):
         return bp_wave_fused_plain(state, ch_llr, retire, iters, flavor,
                                    check_every, live)
     from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_fused_cuda
@@ -336,8 +329,7 @@ def bpr_decode(ch_llr: torch.Tensor, frozen: torch.Tensor, true_u: torch.Tensor,
     with engine="plain", through bp_wave_plain in ch_llr's dtype.  The
     kernel is float32-only: another dtype on a CUDA tensor with
     engine="auto" raises ValueError."""
-    _check_engine(engine)
-    if (engine == "auto" and ch_llr.device.type == "cuda"
+    if (use_kernel(ch_llr, engine, "bpr_decode")
             and ch_llr.dtype != torch.float32):
         raise ValueError(f"the BP wave kernel is float32-only, got "
                          f"{ch_llr.dtype}: pass engine='plain'")
@@ -516,13 +508,12 @@ def bp_wave_mc(state, meta, u_table, x_table, sigma, seeds, bits=None,
     and unused.  The CUDA kernel (ops/bp_wave_mc_kernel.py) runs on a CUDA
     tensor and updates state and meta in place; the plain version on a CPU
     tensor or with engine="plain"."""
-    _check_engine(engine)
     if bit_gen != "tf32":
         raise ValueError(f"bit_gen={bit_gen!r}: only the counter-based "
                          "threefry generator 'tf32' is supported")
     if not gen_bits and bits is None:
         raise ValueError("gen_bits=False needs bits [spares, B, N]")
-    if engine == "plain" or state.device.type == "cpu":
+    if not use_kernel(state, engine, "bp_wave_mc"):
         if gen_bits:
             bits = mc_bits(seeds, spares, state.shape[1], state.shape[2],
                            state.device)

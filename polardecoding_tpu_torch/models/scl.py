@@ -43,13 +43,13 @@ from polardecoding_tpu_torch.models._compact import (
 )
 from polardecoding_tpu_torch.models.sc import sc_decode
 from polardecoding_tpu_torch.models.scl_fast import r1_stages
+from polardecoding_tpu_torch.ops._build import use_kernel
 from polardecoding_tpu_torch.ops.chk import phi_penalties_both
 from polardecoding_tpu_torch.ops.crc import gf2_matmul
 from polardecoding_tpu_torch.ops.encode import polar_encode
 from polardecoding_tpu_torch.utils import trace
 
 BIG = 1e30  # PM of inactive list slots
-ENGINES = ("auto", "plain")
 
 
 def default_wloop(n: int, L: int) -> int:
@@ -197,15 +197,6 @@ def _best(u_all, PM):
     return torch.take_along_dim(u_all, best[:, None, None], dim=1)[:, 0]
 
 
-def _check(engine: str):
-    if engine not in ENGINES:
-        raise ValueError(f"unknown SCL engine {engine!r}")
-
-
-def _use_kernel(ch_llr, engine: str) -> bool:
-    return engine == "auto" and ch_llr.device.type != "cpu"
-
-
 def scl_decode_auto(ch_llr: torch.Tensor, frozen: torch.Tensor,
                     list_size: int = 8, return_all: bool = False,
                     return_ties: bool = False, engine: str = "auto",
@@ -213,8 +204,7 @@ def scl_decode_auto(ch_llr: torch.Tensor, frozen: torch.Tensor,
     """SCL with the CUDA list-decode kernel for a CUDA tensor and the plain
     version for a CPU tensor, exact (r1=0) or the rate-1 flavor on either;
     same returns as `scl_decode`."""
-    _check(engine)
-    if not _use_kernel(ch_llr, engine):
+    if not use_kernel(ch_llr, engine, "scl_decode_auto"):
         return scl_decode(ch_llr, frozen, list_size=list_size,
                           return_all=return_all, return_ties=return_ties,
                           r1=r1, wloop=wloop)
@@ -232,8 +222,7 @@ def sc_decode_auto(ch_llr: torch.Tensor, frozen: torch.Tensor,
                    engine: str = "auto") -> torch.Tensor:
     """SC: the list-decode kernel at L=1 for a CUDA tensor (the L=1 path
     metric decides by the LLR's sign), models/sc.sc_decode otherwise."""
-    _check(engine)
-    if not _use_kernel(ch_llr, engine):
+    if not use_kernel(ch_llr, engine, "sc_decode_auto"):
         return sc_decode(ch_llr, frozen)
     from polardecoding_tpu_torch.ops.scl_kernel import scl_decode_cuda
 

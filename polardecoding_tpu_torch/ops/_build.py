@@ -36,6 +36,16 @@ class BuildError(RuntimeError):
     pass
 
 
+def use_kernel(x, engine: str, what: str) -> bool:
+    """Whether the dispatcher `what` launches its CUDA kernel on x (a tensor
+    or a torch.device): with engine "auto" on CUDA; "plain" is the plain
+    version on any device.  Another engine raises ValueError."""
+    if engine not in ("auto", "plain"):
+        raise ValueError(f"{what}: unknown engine {engine!r} (expected "
+                         "'auto' or 'plain')")
+    return engine == "auto" and getattr(x, "device", x).type == "cuda"
+
+
 def find_nvcc() -> str:
     """nvcc from PATH, else $CUDA_HOME/bin (default /usr/local/cuda); raises
     BuildError if there is none."""

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from polardecoding_tpu_torch.ops._build import use_kernel
 from polardecoding_tpu_torch.ops.frame_channel_kernel import frame_llr_cuda
 from polardecoding_tpu_torch.ops.noise import (
     MASK32,
@@ -137,10 +138,8 @@ def frame_llr(x: torch.Tensor, key: torch.Tensor, fidx: torch.Tensor, sigma,
     launch (ops/frame_channel_kernel.frame_llr_cuda; a failed build or
     launch raises); on the CPU, or with engine="plain", the plain
     functions above."""
-    if engine not in ("auto", "plain"):
-        raise ValueError(f"unknown channel engine {engine!r}")
     key = key.to(x.device)
-    if engine == "plain" or x.device.type != "cuda":
+    if not use_kernel(x, engine, "frame_llr"):
         if isinstance(sigma, torch.Tensor):
             sigma = sigma[fidx % len(sigma)]
         return awgn_llr(x, frame_keys(key, fidx), sigma)

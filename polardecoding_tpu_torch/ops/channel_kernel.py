@@ -45,14 +45,12 @@ def mc_channel(m, x_table, sigma, seeds, bits=None, tile: int = 0,
     batch.  gen_bits=False takes `bits` [B, N].  bit_gen="hw" (the TPU's own PRNG) raises; tile and
     interpret are TPU knobs, accepted and unused.  The kernel runs on a CUDA
     tensor, the plain version on a CPU tensor or with engine="plain"."""
-    if engine not in ("auto", "plain"):
-        raise ValueError(f"unknown channel engine {engine!r}")
     if bit_gen != "tf32":
         raise ValueError(f"bit_gen={bit_gen!r}: only the counter-based "
                          "threefry generator 'tf32' is supported")
     if not gen_bits and bits is None:
         raise ValueError("gen_bits=False needs bits [B, N]")
-    if engine == "plain" or m.device.type == "cpu":
+    if not _build.use_kernel(m, engine, "mc_channel"):
         if gen_bits:
             k0, k1, _, step = (int(s) for s in seeds)
             bits = counter_bits(k0, k1, step, m.shape[0], x_table.shape[1],

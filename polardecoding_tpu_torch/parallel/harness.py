@@ -51,6 +51,7 @@ in the JAX package: a mesh of more than one rank raises ValueError.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -86,11 +87,13 @@ from polardecoding_tpu_torch.models.scl import (
     sc_decode_auto,
     scl_decode_auto,
 )
+from polardecoding_tpu_torch.ops._build import use_kernel
 from polardecoding_tpu_torch.ops.channel import (
     fold_in,
     frame_llr,
     prng_key,
     random_bits,
+    sigma_from_ebn0_db,
 )
 from polardecoding_tpu_torch.ops.channel_kernel import mc_channel
 from polardecoding_tpu_torch.ops.crc import (
@@ -186,14 +189,39 @@ def payload_from_index(frame_index: torch.Tensor, pn: torch.Tensor, K: int):
     return pn[idx]
 
 
-def _step_mesh(mesh: Optional[DataMesh], device) -> DataMesh:
-    """A step builder's mesh: the given one, else one process on device."""
-    return one_rank(device) if mesh is None else mesh
-
-
 def _run_mesh(mesh: Optional[DataMesh], device) -> DataMesh:
     """A runner's mesh: the given one, else data_mesh() on device."""
     return data_mesh(device=device) if mesh is None else mesh
+
+
+def _runner(preset: Preset, batch: Optional[int], device,
+            mesh: Optional[DataMesh], log: Optional[Callable]) -> tuple:
+    """A runner's mesh (_run_mesh), global batch (default: batch_per_device
+    for each rank of the mesh) and log (rank 0's alone)."""
+    mesh = _run_mesh(mesh, device)
+    if batch is None:
+        batch = round_up_batch(preset.sweep.batch_per_device * mesh.size, mesh)
+    return mesh, batch, None if mesh.rank else log
+
+
+def _point_setup(preset: Preset, snr_db: float, seed: Optional[int],
+                 error_blocks: Optional[int], max_frames: Optional[int],
+                 device, start: Optional[PointResult] = None) -> tuple:
+    """One SNR point's (result so far, error-block target, frame cap, sigma,
+    point key on `device`: the seed's key folded with round(100 snr_db));
+    seed, target and cap default to the preset's sweep's."""
+    sweep = preset.sweep
+    seed = sweep.seed if seed is None else seed
+    target = sweep.error_blocks if error_blocks is None else error_blocks
+    cap = sweep.max_frames if max_frames is None else max_frames
+    key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
+    res = start or PointResult(preset.name, snr_db, 0, 0, 0, seed)
+    return res, target, cap, float(sigma_from_ebn0_db(snr_db)), key
+
+
+def _on_waves(preset: Preset) -> bool:
+    """Whether run_point, given no frame step, takes the wave engine."""
+    return preset.decoder.kind == "bp" and preset.decoder.bp_early_stop
 
 
 def code_tables(code, device) -> CodeTables:
@@ -201,17 +229,6 @@ def code_tables(code, device) -> CodeTables:
     I = code_info_set(code)
     return code_tables_from_numpy(code_frozen_mask(code), I, pn_sequence(),
                                   info_sub_generator(I, code.N), device)
-
-
-def _make_encoder(encoder: str, tables: CodeTables, N: int) -> Callable:
-    """Codeword map w [B, K'] -> x [B, N] in {0, 1}: "mxu" is the GF(2)
-    product x = (w . G_I) mod 2, "butterfly" the scatter + O(N log N) xor
-    stages; both give the same codewords."""
-    if encoder == "mxu":
-        return lambda w: encode_info_mxu(w, tables.g_rows)
-    if encoder == "butterfly":
-        return lambda w: polar_encode(scatter_info(w, tables.info_set, N))
-    raise ValueError(f"unknown encoder {encoder!r}")
 
 
 def _make_decoder(preset: Preset, tables: CodeTables, engine: str) -> Callable:
@@ -246,17 +263,6 @@ def _make_decoder(preset: Preset, tables: CodeTables, engine: str) -> Callable:
     raise ValueError(f"unknown decoder kind {dec.kind!r}")
 
 
-def _check_llr_dtype(llr_dtype, device: torch.device, engine: str):
-    """The decode kernels (BP, SC, SCL, CA-SCL) take float32 LLRs only: a
-    step that would hand them another dtype raises at once (engine="plain"
-    decodes in any float dtype)."""
-    if (llr_dtype not in (None, torch.float32) and engine == "auto"
-            and device.type == "cuda"):
-        raise ValueError(f"llr_dtype={llr_dtype}: the decode kernels are "
-                         "float32-only; pass engine='plain' to decode in "
-                         "another dtype")
-
-
 def _crc_encoder(code, device) -> Callable:
     """Payload [B, K] -> [B, K'] on `device`: the code's CRC in its style,
     or the payload itself without one.  The matrix goes to the device here,
@@ -283,6 +289,65 @@ def _mc_mode_tables(code, device):
     utab = torch.cat([u.to(torch.float32), pad])
     xtab = torch.cat([polar_encode(u).to(torch.float32), pad])
     return utab.to(device), xtab.to(device)
+
+
+class _Frames:
+    """A step builder's mesh (one process on `device` unless given), device,
+    tables and encoders, and its rank's frames (global lanes first .. first
+    + b - 1): their info words, codewords ("mxu", the GF(2) product, or
+    "butterfly": the same ones), LLRs and info-bit errors.  A step's
+    llr_dtype other than float32 raises before anything is built where the
+    decode kernels (BP, SC, SCL, CA-SCL: float32 only) would take it.  It
+    opens no spans: a step that records its stages passes trace.span as
+    `span`."""
+
+    def __init__(self, code, batch: int, device, mesh: Optional[DataMesh],
+                 encoder: str, engine: str,
+                 tables: Optional[CodeTables] = None, llr_dtype=None):
+        self.mesh = one_rank(device) if mesh is None else mesh
+        self.device = device = self.mesh.device
+        if (llr_dtype not in (None, torch.float32)
+                and use_kernel(device, engine, "llr_dtype")):
+            raise ValueError(f"llr_dtype={llr_dtype}: the decode kernels are "
+                             "float32-only; pass engine='plain' to decode in "
+                             "another dtype")
+        self.first, self.b = self.mesh.lanes(batch)
+        self.tables = tables = (code_tables(code, device) if tables is None
+                                else tables)
+        if encoder == "mxu":
+            self.encode = lambda w: encode_info_mxu(w, tables.g_rows)
+        elif encoder == "butterfly":
+            self.encode = lambda w: polar_encode(
+                scatter_info(w, tables.info_set, code.N))
+        else:
+            raise ValueError(f"unknown encoder {encoder!r}")
+        self.crc = None if code.crc is None else _crc_encoder(code, device)
+        self.K, self.engine = code.K, engine
+        self.lanes = torch.arange(self.first, self.first + self.b,
+                                  dtype=torch.int64, device=device)
+
+    def info(self, fidx: torch.Tensor, span=contextlib.nullcontext):
+        """Info words [b, K'] of frames fidx: PN payload, then the CRC."""
+        with span("step.payload"):
+            w = payload_from_index(fidx, self.tables.pn, self.K)
+        if self.crc is None:
+            return w
+        with span("step.crc_encode"):
+            return self.crc(w)
+
+    def draw(self, key, fidx: torch.Tensor, sigma,
+             span=contextlib.nullcontext) -> tuple:
+        """(info words, channel LLRs [b, N]) of frames fidx; sigma as
+        ops/channel.frame_llr's."""
+        w = self.info(fidx, span)
+        with span("step.encode"):
+            x = self.encode(w)
+        with span("step.channel"):
+            return w, frame_llr(x, key, fidx, sigma, self.engine)
+
+    def errors(self, u_hat: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        """The info-bit error mask [b, K'] of u_hat against info words w."""
+        return u_hat[:, self.tables.info_set] != w
 
 
 def make_frame_step(preset: Preset, batch: int, device="cuda",
@@ -319,16 +384,10 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
     if noise not in ("kernel", "threefry"):
         raise ValueError(f"unknown noise {noise!r}")
     N, K = code.N, code.K
-    mesh = _step_mesh(mesh, device)
-    device = mesh.device
-    first, b = mesh.lanes(batch)
-    _check_llr_dtype(llr_dtype, device, engine)
-    if tables is None:
-        tables = code_tables(code, device)
-    encode = _make_encoder(encoder, tables, N)
-    decode = _make_decoder(preset, tables, engine)
-    crc_encode = _crc_encoder(code, device)
-    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
+    frames = _Frames(code, batch, device, mesh, encoder, engine, tables,
+                     llr_dtype)
+    mesh, device, first, b = frames.mesh, frames.device, frames.first, frames.b
+    decode = _make_decoder(preset, frames.tables, engine)
     no_ties = torch.zeros((), dtype=torch.int64, device=device)
     if channel == "mc":
         utab, xtab = _mc_mode_tables(code, device)
@@ -347,25 +406,17 @@ def make_frame_step(preset: Preset, batch: int, device="cuda",
 
     def step(key, frame_start, sigma):
         _check_frames(frame_start + batch, f"{preset.name} frame step")
-        fidx = frame_start + lanes
+        fidx = frame_start + frames.lanes
         if channel == "mc":
             with trace.span("step.channel"):
                 llr, u = mc_llr(key, frame_start, fidx, sigma)
         else:
-            with trace.span("step.payload"):
-                w = payload_from_index(fidx, tables.pn, K)
-            if code.crc is not None:
-                with trace.span("step.crc_encode"):
-                    w = crc_encode(w)
-            with trace.span("step.encode"):
-                x = encode(w)
-            with trace.span("step.channel"):
-                llr = frame_llr(x, key, fidx, sigma, engine)
+            w, llr = frames.draw(key, fidx, sigma, trace.span)
         with trace.span("step.decode"):
             u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
         with trace.span("step.count"):
             # the MC table's u is the whole frame's; w is the info bits
-            bad = u_hat != u if channel == "mc" else u_hat[:, tables.info_set] != w
+            bad = u_hat != u if channel == "mc" else frames.errors(u_hat, w)
             pm_ties = no_ties if ties is None else (ties > 0).sum()
             return mesh.sum(bad.sum(), bad.any(dim=-1).sum(), pm_ties)
 
@@ -384,17 +435,10 @@ def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
     make_frame_step's (early-stop BP presets decode with the latched early
     stop every 4 iterations, not the wave engine).  llr_dtype, engine,
     encoder and mesh as make_frame_step's."""
-    code = preset.code
-    N, K = code.N, code.K
-    mesh = _step_mesh(mesh, device)
-    device = mesh.device
-    first, b = mesh.lanes(batch)
-    _check_llr_dtype(llr_dtype, device, engine)
-    tables = code_tables(code, device)
-    encode = _make_encoder(encoder, tables, N)
-    decode = _make_decoder(preset, tables, engine)
-    crc_encode = _crc_encoder(code, device)
-    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
+    frames = _Frames(preset.code, batch, device, mesh, encoder, engine,
+                     llr_dtype=llr_dtype)
+    mesh, device = frames.mesh, frames.device
+    decode = _make_decoder(preset, frames.tables, engine)
 
     def per_snr(snr_idx, values):
         # index_add_, not bincount: bincount reads its input's maximum on
@@ -407,12 +451,11 @@ def make_multisnr_step(preset: Preset, batch: int, num_snr: int,
             raise ValueError(f"sigmas must be [{num_snr}], got "
                              f"{tuple(sigmas.shape)}")
         _check_frames(frame_start + batch, f"{preset.name} multi-SNR step")
-        fidx = frame_start + lanes
+        fidx = frame_start + frames.lanes
         snr_idx = fidx % num_snr
-        w = crc_encode(payload_from_index(fidx, tables.pn, K))
-        llr = frame_llr(encode(w), key, fidx, sigmas, engine)
+        w, llr = frames.draw(key, fidx, sigmas)
         u_hat, ties = decode(llr if llr_dtype is None else llr.to(llr_dtype))
-        bad = u_hat[:, tables.info_set] != w
+        bad = frames.errors(u_hat, w)
         tie_frames = (torch.zeros(num_snr, dtype=torch.int64, device=device)
                       if ties is None else per_snr(snr_idx, ties > 0))
         return mesh.sum(per_snr(snr_idx, bad.sum(dim=-1)),
@@ -437,7 +480,7 @@ def run_fused_sweep(preset: Preset, snr_points, total_frames: int,
     snrs = list(snr_points)
     mesh = _run_mesh(mesh, device)
     device = mesh.device
-    sigmas = torch.tensor([10.0 ** (-s / 20.0) for s in snrs],
+    sigmas = torch.tensor([sigma_from_ebn0_db(s) for s in snrs],
                           dtype=torch.float32, device=device)
     step = make_multisnr_step(preset, batch, len(snrs), device,
                               llr_dtype=llr_dtype, engine=engine,
@@ -469,23 +512,20 @@ def make_bpr_step(preset: Preset, batch: int, device="cuda",
     frame channel's kernel on a CUDA device) or "plain"; mesh as
     make_frame_step's."""
     code, dec = preset.code, preset.decoder
-    N, K = code.N, code.K
-    mesh = _step_mesh(mesh, device)
-    device = mesh.device
-    first, b = mesh.lanes(batch)
-    tables = code_tables(code, device)
-    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
+    frames = _Frames(code, batch, device, mesh, "butterfly", engine)
+    mesh, tables = frames.mesh, frames.tables
 
     def step(key, frame_start, sigma):
         _check_frames(frame_start + batch, f"{preset.name} BPr step")
-        fidx = frame_start + lanes
-        payload = payload_from_index(fidx, tables.pn, K)
-        u = scatter_info(payload, tables.info_set, N)
+        fidx = frame_start + frames.lanes
+        w = frames.info(fidx)
+        # bpr_decode takes the scattered u, so the codeword is encoded here
+        u = scatter_info(w, tables.info_set, code.N)
         llr = frame_llr(polar_encode(u), key, fidx, sigma, engine)
         u_hat, E = bpr_decode(llr, tables.frozen, u, tables.info_set,
                               iters=dec.bp_iters, flavor=dec.bp_flavor,
                               checkpoints=dec.bpr_checkpoints, engine=engine)
-        bad = u_hat[:, tables.info_set] != payload
+        bad = frames.errors(u_hat, w)
         return mesh.sum(bad.sum(), bad.any(dim=-1).sum(), E)
 
     return step
@@ -498,18 +538,12 @@ def run_bpr_point(preset: Preset, snr_db: float, batch: int = 256,
     """BPr at one SNR point -> (PointResult, E [checkpoints, n+1] int64
     numpy, summed over frames on the host; divide by frames for the
     reference's table).  Steps of the global `batch` until the error-block
-    target or the frame cap, under the point key fold_in(prng_key(seed),
-    round(100 snr))."""
-    sweep = preset.sweep
-    seed = sweep.seed if seed is None else seed
-    target = sweep.error_blocks if error_blocks is None else error_blocks
-    cap = sweep.max_frames if max_frames is None else max_frames
+    target or the frame cap, under run_point's point key (_point_setup)."""
     mesh = _run_mesh(mesh, device)
-    device = mesh.device
-    step_fn = make_bpr_step(preset, batch, device, engine=engine, mesh=mesh)
-    sigma = float(10.0 ** (-snr_db / 20.0))
-    key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
-    res = PointResult(preset.name, snr_db, 0, 0, 0, seed)
+    step_fn = make_bpr_step(preset, batch, mesh.device, engine=engine,
+                            mesh=mesh)
+    res, target, cap, sigma, key = _point_setup(
+        preset, snr_db, seed, error_blocks, max_frames, mesh.device)
     E = None
     t0 = time.perf_counter()
     while res.errblock < target and res.frames < cap:
@@ -569,27 +603,23 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
         raise ValueError("wave stepping is a BP engine")
     if check_every and not fused:
         raise ValueError("check_every needs the fused wave kernel")
-    N, K = code.N, code.K
+    N = code.N
     iter_max = dec.bp_iters
-    mesh = _step_mesh(mesh, device)
-    device = mesh.device
-    first, b = mesh.lanes(batch)
-    if tables is None:
-        tables = code_tables(code, device)
-    encode = _make_encoder(encoder, tables, N)
-    lanes = torch.arange(first, first + b, dtype=torch.int64, device=device)
+    frames = _Frames(code, batch, device, mesh, encoder, engine, tables)
+    mesh, device, tables = frames.mesh, frames.device, frames.tables
+    first, b = frames.first, frames.b
     wave = dict(iters=wave_iters, flavor=dec.bp_flavor, engine=engine)
 
-    def fresh_llr(key, fidx, sigma):
-        x = encode(payload_from_index(fidx, tables.pn, K))
-        return frame_llr(x, key, fidx, sigma, engine)
+    def retirees(u_hat, fidx, retire):
+        # this rank's (errbit, errblock, frames) of the slots retire marks
+        w = frames.info(fidx.clamp_min(0))
+        bad = frames.errors(u_hat, w) & retire[:, None]
+        return bad.sum(), bad.any(dim=-1).sum(), retire.sum()
 
     def count(u_hat, fidx, retire):
         """This rank's retirees' counters, exchanged -> (the global (errbit,
         errblock, frames), the retirees of the ranks before this one)."""
-        payload = payload_from_index(fidx.clamp_min(0), tables.pn, K)
-        bad = (u_hat[:, tables.info_set] != payload) & retire[:, None]
-        out = (bad.sum(), bad.any(dim=-1).sum(), retire.sum())
+        out = retirees(u_hat, fidx, retire)
         if mesh.group is None:
             return out, 0
         every = mesh.gather(torch.stack(out))
@@ -602,11 +632,9 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
 
     def drain_count(u_hat, fidx, done, iters_done):
         retire = (done | (iters_done >= iter_max)) & (fidx >= 0)
-        payload = payload_from_index(fidx.clamp_min(0), tables.pn, K)
-        bad = (u_hat[:, tables.info_set] != payload) & retire[:, None]
+        out = retirees(u_hat, fidx, retire)
         fidx = torch.where(retire, -1, fidx)
-        return fidx, mesh.sum(bad.sum(), bad.any(dim=-1).sum(), retire.sum(),
-                              (fidx >= 0).sum())
+        return fidx, mesh.sum(*out, (fidx >= 0).sum())
 
     zeros = torch.zeros(b, dtype=torch.int64, device=device)
     if fused:
@@ -624,7 +652,7 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
             fidx = refill(fidx, start, retire)
             iters_done = torch.where(retire, 0, iters_done)
             state, u_hat, done = bp_wave_fused(
-                state, fresh_llr(key, fidx, sigma), retire,
+                state, frames.draw(key, fidx, sigma)[1], retire,
                 check_every=check_every, **wave)
             iters_done = iters_done + wave_iters
             retire = done | (iters_done >= iter_max)
@@ -652,8 +680,9 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
         return init_fused, step_fused, drain_fused
 
     def init(key, frame_start, sigma):
-        fidx = frame_start + lanes
-        state = wave_init_state(fresh_llr(key, fidx, sigma), tables.frozen)
+        fidx = frame_start + frames.lanes
+        state = wave_init_state(frames.draw(key, fidx, sigma)[1],
+                                tables.frozen)
         return state, fidx, zeros, zeros[0] + frame_start + batch
 
     def step(key, sigma, carry):
@@ -667,7 +696,7 @@ def make_wave_step(preset: Preset, batch: int, wave_iters: int = 8,
         next_fidx = next_fidx + out[2]
         # R[0] is the same frozen row in every slot, so the merge is the
         # JAX package's where(retire, wave_init_state(llr), state)
-        state = wave_merge(state, fresh_llr(key, fidx, sigma), retire)
+        state = wave_merge(state, frames.draw(key, fidx, sigma)[1], retire)
         iters_done = torch.where(retire, 0, iters_done)
         return (state, fidx, iters_done, next_fidx), out
 
@@ -715,7 +744,7 @@ def make_wave_step_mc(preset: Preset, batch: int, wave_iters: int = 8,
     N, K = code.N, code.K
     if spares == 0:
         spares = max(2, wave_iters // 8)
-    device = _step_mesh(mesh, device).device
+    device = one_rank(device).device if mesh is None else mesh.device
     frozen = torch.as_tensor(code_frozen_mask(code), device=device)
     utab, xtab = mc_tables(code_info_set(code), K, N, device)
     kw = dict(iters=wave_iters, flavor=dec.bp_flavor, iter_max=dec.bp_iters,
@@ -771,6 +800,30 @@ def _read_later(counters: torch.Tensor) -> Callable[[], list]:
     return get
 
 
+def _run_lagged(res: PointResult, target: int, cap: int, chunk: int,
+                step: Callable, take: Callable, spans: tuple):
+    """Chunks of `chunk` steps, step(i) each, until res reaches the target
+    or the cap, yielding after each; a chunk's summed counters go to take
+    one chunk later.  spans: the step span's name (anchored), the read's."""
+    step_span, read_span = spans
+    pending = None
+    while res.errblock < target and res.frames < cap:
+        total = 0
+        for i in range(chunk):
+            with trace.span(step_span, anchor=True):
+                total = total + torch.stack(step(i))
+        if pending is not None:
+            with trace.span(read_span):
+                counts = pending()
+            take(counts)
+        pending = _read_later(total)
+        yield
+    if pending is not None:
+        with trace.span(read_span):
+            counts = pending()
+        take(counts)
+
+
 def run_point_waves(
     preset: Preset,
     snr_db: float,
@@ -809,16 +862,8 @@ def run_point_waves(
     and `wave_iters`), `waves.step` around each step's enqueue (opened with
     a clock anchor), `waves.read` around each wait for a chunk's counters
     and `waves.drain` around each drain and its counters' read."""
-    sweep = preset.sweep
-    seed = sweep.seed if seed is None else seed
-    target = sweep.error_blocks if error_blocks is None else error_blocks
-    cap = sweep.max_frames if max_frames is None else max_frames
-    mesh = _run_mesh(mesh, device)
+    mesh, batch, log = _runner(preset, batch, device, mesh, log)
     device = mesh.device
-    if batch is None:
-        batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
-    if mesh.rank:
-        log = None
     with trace.span("waves.build", batch=batch, wave_iters=wave_iters):
         if engine == "mc":
             init, step, drain = make_wave_step_mc(
@@ -830,9 +875,8 @@ def run_point_waves(
                 check_every=check_every, mesh=mesh)
         else:
             raise ValueError(f"unknown wave engine {engine!r}")
-    sigma = float(10.0 ** (-snr_db / 20.0))
-    key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
-    res = start_state or PointResult(preset.name, snr_db, 0, 0, 0, seed)
+    res, target, cap, sigma, key = _point_setup(
+        preset, snr_db, seed, error_blocks, max_frames, device, start_state)
     carry = init(key, res.frames, sigma)
     t0 = time.perf_counter()
 
@@ -841,33 +885,24 @@ def run_point_waves(
         res.errblock += counts[1]
         res.frames += counts[2]
 
-    pending = None
-    while res.errblock < target and res.frames < cap:
+    def one_step(_):
+        nonlocal carry
         if engine == "fused":
             # the slots hold at most `batch` frames past those counted, and
             # the chunk run meanwhile and this one retire at most
             # 2 SYNC_EVERY batches more
             _check_frames(res.frames + batch * (2 * SYNC_EVERY + 1),
                           f"{preset.name} wave engine")
-        total = 0
-        for _ in range(SYNC_EVERY):
-            with trace.span("waves.step", anchor=True):
-                carry, out = step(key, sigma, carry)
-                total = total + torch.stack(out)
-        if pending is not None:
-            with trace.span("waves.read"):
-                counts = pending()
-            take(counts)
-        pending = _read_later(total)
+        carry, out = step(key, sigma, carry)
+        return out
+
+    for _ in _run_lagged(res, target, cap, SYNC_EVERY, one_step, take,
+                         ("waves.step", "waves.read")):
         if log:
             # counted frames lag one chunk behind the steps run
             log(f"{preset.name} @ {snr_db:.2f} dB (waves): "
                 f"counted={res.frames} errblock={res.errblock} "
                 f"bler={res.bler:.3e}")
-    if pending is not None:
-        with trace.span("waves.read"):
-            counts = pending()
-        take(counts)
     remaining = batch
     while remaining > 0:
         with trace.span("waves.drain"):
@@ -918,28 +953,18 @@ def run_point(
     if sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {sync_every}")
     with trace.span("point"):
-        mesh = _run_mesh(mesh, device)
-        if (step_fn is None and preset.decoder.kind == "bp"
-                and preset.decoder.bp_early_stop):
-            return run_point_waves(preset, snr_db, batch=batch, mesh=mesh,
-                                   error_blocks=error_blocks,
+        if step_fn is None and _on_waves(preset):
+            return run_point_waves(preset, snr_db, batch=batch, device=device,
+                                   mesh=mesh, error_blocks=error_blocks,
                                    max_frames=max_frames, seed=seed,
                                    start_state=start_state, log=log)
+        mesh, batch, log = _runner(preset, batch, device, mesh, log)
         device = mesh.device
-        sweep = preset.sweep
-        seed = sweep.seed if seed is None else seed
-        target = sweep.error_blocks if error_blocks is None else error_blocks
-        cap = sweep.max_frames if max_frames is None else max_frames
-        if batch is None:
-            batch = round_up_batch(sweep.batch_per_device * mesh.size, mesh)
         if step_fn is None:
             step_fn = make_frame_step(preset, batch, device, mesh=mesh)
-        if mesh.rank:
-            log = None
-
-        sigma = float(10.0 ** (-snr_db / 20.0))
-        key = fold_in(prng_key(seed, device), int(round(snr_db * 100)))
-        res = start_state or PointResult(preset.name, snr_db, 0, 0, 0, seed)
+        res, target, cap, sigma, key = _point_setup(
+            preset, snr_db, seed, error_blocks, max_frames, device,
+            start_state)
         t0 = time.perf_counter()
 
         def take(counts, frames):
@@ -960,33 +985,21 @@ def run_point(
                         f"{preset.name} @ {snr_db:.2f} dB: frames={res.frames} "
                         f"errblock={res.errblock} bler={res.bler:.3e}"
                     )
-            res.elapsed_s += time.perf_counter() - t0
-            return res
-
-        issued = res.frames  # frames run (res.frames lags one chunk)
-        pending = None
-        while res.errblock < target and res.frames < cap:
-            total = 0
-            for i in range(sync_every):
-                with trace.span("point.step", anchor=True):
-                    total = total + torch.stack(
-                        step_fn(key, issued + i * batch, sigma))
-            issued += batch * sync_every
-            if pending is not None:
-                with trace.span("point.read"):
-                    counts = pending()
-                take(counts, batch * sync_every)
-            pending = _read_later(total)
-            if log:
-                log(f"{preset.name} @ {snr_db:.2f} dB: issued={issued} "
-                    f"counted={res.frames} errblock={res.errblock} "
-                    f"bler={res.bler:.3e}")
-        if pending is not None:
-            with trace.span("point.read"):
-                counts = pending()
-            take(counts, batch * sync_every)
+        else:
+            issued = res.frames  # frames run (res.frames lags one chunk)
+            for _ in _run_lagged(
+                    res, target, cap, sync_every,
+                    lambda i: step_fn(key, issued + i * batch, sigma),
+                    lambda counts: take(counts, batch * sync_every),
+                    ("point.step", "point.read")):
+                issued += batch * sync_every
+                if log:
+                    log(f"{preset.name} @ {snr_db:.2f} dB: issued={issued} "
+                        f"counted={res.frames} errblock={res.errblock} "
+                        f"bler={res.bler:.3e}")
         res.elapsed_s += time.perf_counter() - t0
         return res
+
 
 def run_sweep(
     preset: Preset,
@@ -1005,16 +1018,11 @@ def run_sweep(
     checkpoint of either package).  Over a mesh every rank reads the
     checkpoint, rank 0 alone writes it and logs, and the ranks meet at a
     barrier after each write."""
-    mesh = _run_mesh(mesh, device)
-    if batch is None:
-        batch = round_up_batch(preset.sweep.batch_per_device * mesh.size, mesh)
-    # early-stop BP presets take run_point's wave-engine path
-    wave_es = preset.decoder.kind == "bp" and preset.decoder.bp_early_stop
-    step_fn = None if wave_es else make_frame_step(preset, batch, mesh.device,
-                                                   mesh=mesh)
+    mesh, batch, log = _runner(preset, batch, device, mesh, log)
+    # an early-stop BP preset takes run_point's wave-engine path
+    step_fn = None if _on_waves(preset) else make_frame_step(
+        preset, batch, mesh.device, mesh=mesh)
     points = preset.sweep.snr_points() if snr_points is None else list(snr_points)
-    if mesh.rank:
-        log = None
 
     done: dict[float, PointResult] = {}
     if checkpoint_path and os.path.exists(checkpoint_path):
