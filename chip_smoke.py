@@ -10,7 +10,9 @@
 3. prints the live-row BP kernels' launch shapes (shared memory per frame,
    frames per SM, registers, spills) at N=1024 and 128, the wave kernels in
    every flavor, and checks 3 frames per SM, at most 74,752 bytes a frame
-   and no spills at N=1024; holds the frame step's channel kernel
+   and no spills at N=1024; the SCL kernel's, exact and rate-1 at N=1024
+   (L=8, 16, 32) and N=128 (L=8), and checks no spills and 13 frames per
+   SM in exact mode at L=8; holds the frame step's channel kernel
    (csrc/frame_channel.cu) against its plain version on the card, bit for
    bit on every element: N in {8, 64, 128, 1024}, B in {1, 33, 512,
    16384}, at -2, 0, 2, 6 and 10 dB, frame indices 0.. and 2^31 - 3 ..
@@ -90,7 +92,8 @@
    enqueue is hidden), and holds the kernel's output
    bit-equal to the plain version's there on every frame; times each whole
    frame step (with its peak device memory), and its encode and channel
-   (the frame channel's kernel) stages apart, the fused ES wave step split
+   (the frame channel's kernel) stages apart, CASCL_1024_L32's frame step
+   at B=4096 (the SCL kernel at L=32), the fused ES wave step split
    into kernel and channel, and
    the retired frames per second of the fused and MC wave paths over one
    chunk of eight steps, with CUDA events after warmup;
@@ -293,6 +296,12 @@ SCL_BATCH = 16384
 SCL_ERROR_BLOCKS = 100
 SCL_BLER_RANGE = (0.0055, 0.0125)
 SCL_KERNEL_REPS = 5
+# the SCL kernel's instantiations whose launch shapes phase_shapes prints:
+# (N, L, r1), the presets' N=1024 and the generic one (N=128)
+SCL_SHAPES = tuple((N, L, r1) for r1 in (0, 4)
+                   for N, L in ((1024, 8), (1024, 16), (1024, 32), (128, 8)))
+# CASCL_1024_L32's frame step, timed apart (3 frames per SM either way)
+L32_PRESET, L32_BATCH = "CASCL_1024_L32", 4096
 # the rate-1 flavor: bench.py's default SCL leg (SCL_1024_L8_FASTR1, batch
 # 16384) and the other _FASTR1 presets (SCL_1024_L16_FASTR1's mask is
 # SCL_1024_L8_FASTR1's); wloop is the presets' (models/scl.default_wloop)
@@ -656,10 +665,13 @@ def phase_shapes():
     memory per frame, frames per SM from the occupancy query, registers and
     local memory per thread (spills and stack frames).  No local memory at
     either N (N=128 launches the instances for n at run time); at N=1024 3
-    frames per SM and at most 74,752 bytes a frame."""
+    frames per SM and at most 74,752 bytes a frame.  Then the SCL kernel's
+    (SCL_SHAPES): no local memory in any instantiation, and exact mode at
+    N=1024, L=8 (the stage n-1 row in registers) 13 frames per SM."""
     from polardecoding_tpu_torch.ops.bp_kernel import FLAVORS, bp_decode_shape
     from polardecoding_tpu_torch.ops.bp_wave_kernel import bp_wave_shape
     from polardecoding_tpu_torch.ops.bp_wave_mc_kernel import bp_wave_mc_shape
+    from polardecoding_tpu_torch.ops.probe_kernel import scl_shape
 
     for N in (1024, 128):
         shapes = [("bp_decode", bp_decode_shape(N)),
@@ -678,6 +690,15 @@ def phase_shapes():
                 check(shape["frames_per_sm"] == 3
                       and shape["smem_bytes"] <= 74752,
                       f"{name} at N=1024: {shape}")
+    for N, L, r1 in SCL_SHAPES:
+        name = "scl_decode_r1" if r1 else "scl_decode"
+        shape = scl_shape(SCL_BATCH, N, L, *((L - 1, max(1, N // 32)) if r1
+                                             else (0, 0)))
+        emit({"kernel_shape": dict(kernel=name, N=N, L=L, **shape)})
+        check(shape["local_bytes"] == 0, f"{name} at N={N}, L={L}: {shape}")
+        if (N, L, r1) == (1024, 8, 0):
+            check(shape["top_regs"] and shape["frames_per_sm"] == 13,
+                  f"{name} at N=1024, L=8: {shape}")
 
 
 def llr_frames(name, batch, snr_db, device, seed=7, N=None):
@@ -1218,6 +1239,26 @@ def scl_timing_compare(got, want, u, name):
     check(worst == 0 and equal == frames,
           f"kernel != plain at the main path's shape: {rec}")
     return worst
+
+
+def phase_l32_step(card):
+    """CASCL_1024_L32's whole frame step at MAIN_SNR, batch L32_BATCH: the
+    list-decode kernel at L=32, which keeps 3 frames per SM."""
+    from polardecoding_tpu_torch.configs import preset
+    from polardecoding_tpu_torch.ops.channel import (fold_in, prng_key,
+                                                     sigma_from_ebn0_db)
+    from polardecoding_tpu_torch.parallel.harness import make_frame_step
+
+    p = preset(L32_PRESET)
+    step = make_frame_step(p, L32_BATCH, DEVICE)
+    key = fold_in(prng_key(p.sweep.seed, DEVICE), int(round(MAIN_SNR * 100)))
+    sigma = sigma_from_ebn0_db(MAIN_SNR)
+    n = iter(range(1, 1 << 30))
+    step_ms, _ = cuda_ms(lambda: step(key, next(n) * L32_BATCH, sigma),
+                         STEP_REPS)
+    emit({"timing": {"card": card, "preset": L32_PRESET, "batch": L32_BATCH,
+                     "step_ms": step_ms,
+                     "step_fps": L32_BATCH / step_ms * 1e3}})
 
 
 def phase_profile(card, label, batch, run):
@@ -3206,6 +3247,7 @@ def main() -> int:
         also={"exact_kernel_ms": lambda llr, fr: scl_decode_cuda(llr, fr, L)},
         L=L, r1=r1, wloop=WLOOP)
     times["scl_decode_r1"] = (r1_ms, r1_plain_ms, max(r1_worst, worst))
+    phase_l32_step(card)
     # the CHKs that the timed decode's inputs need, from a plain run on them
     llr, fr, _ = llr_frames(MAIN_PRESET, MAIN_BATCH, MAIN_SNR, DEVICE)
     with counted_chks(preset(MAIN_PRESET).decoder.bp_flavor) as c:

@@ -59,14 +59,16 @@
 // Shared memory per frame (bytes, W = max(1, N/32) words):
 //   llr   f32 [L][N/2 - 1] (stages 0 .. n-2; at the end the history [N][L])
 //   top   f32 [N]  stage n-1: f row, or g+ in [0, N/2) and g- after it; the
-//                  node input of a node of width N
+//                  node input of a node of width N.  Not in exact mode at
+//                  N = 1024, which holds it in registers (kTopRegs)
 //   bits  u32 [L + 1][W]  stages 0 .. n-1 packed, slots 0..4 in word 0 at
 //                  bit 2^i - 1, slot i >= 5 at word 2^(i-5); row L is zero
 //   ptr   u64 [2][L], cand f32 [2L], pm f32 [L], og u8 [L]
 //   R1 only: mins f32 [L][tm], flips u32 [L], X u32 [L][xw], pos u16 [L][tm]
-// At N = 1024 in exact mode that is 21,840 bytes at L = 8 (10 frames on an
-// SM), 39,440 at L = 16 (5 frames) and 74,656 at L = 32 (3 frames); the
-// flavor adds its R1 scratch (22,272 bytes at L = 8).  A block adds the
+// At N = 1024 in exact mode, without top, that is 17,744 bytes at L = 8
+// (13 frames on an SM), 35,344 at L = 16 (6 frames) and 70,560 at L = 32
+// (3 frames); the flavor keeps top and adds its R1 scratch (22,272 bytes
+// in all at L = 8 for the FASTR1 presets, 10 frames).  A block adds the
 // node table (N bytes) once.
 //
 // Per bit j, t = ntz(j) (n for j = 0), stop s (the node's stage, else 0):
@@ -168,15 +170,17 @@ struct Layout {
   size_t llr, top, bits, ptr, cand, pm, mins, fl, xw, pos, og, total;
 };
 
-// Byte offsets of one frame's region; tm = xw = 0 in exact mode.
-__host__ __device__ inline Layout layout(int n, int L, int tm, int xw) {
+// Byte offsets of one frame's region; tm = xw = 0 in exact mode, and no
+// top row where the warp's registers hold it (top_regs).
+__host__ __device__ inline Layout layout(int n, int L, int tm, int xw,
+                                         bool top_regs) {
   const size_t N = size_t(1) << n, S2 = N / 2 - 1;
   const size_t W = N >= 32 ? N / 32 : 1;
   Layout o;
   o.llr = 0;
   const size_t llr_bytes = 4 * L * S2 > N * L ? 4 * L * S2 : N * L;
   o.top = up16(o.llr + llr_bytes);
-  o.bits = up16(o.top + 4 * N);
+  o.bits = up16(o.top + (top_regs ? 0 : 4 * N));
   o.ptr = up16(o.bits + 4 * (L + 1) * W);
   o.cand = up16(o.ptr + 16 * size_t(L));
   o.pm = o.cand + 8 * size_t(L);
@@ -194,6 +198,17 @@ __host__ __device__ inline Layout layout(int n, int L, int tm, int xw) {
 // (kernel_for): their loops and shifts then have constant bounds, which the
 // card runs markedly faster (PERF.md, section 6).  The node loops below stay
 // rolled (#pragma unroll 1): unrolled, the larger code ran slower.
+//
+// Exact mode at N = 1024 (kTopRegs) keeps the stage n-1 row in registers
+// instead: lane l holds element l + 32 m as tr[m], m = 0 .. 31.  Every
+// access to it pairs e with e + 256 or e + 512, of the same e mod 32, so
+// the g- and f-nodes of stages n-1 and n-2 read and write only their own
+// lane's elements, with loops unrolled over the element chunk so that tr
+// is indexed by constants.  An R0/REP node of stage >= n-1 starts only at
+// leaf 0 (the table splits the width-N/2 node at bit N/2), when the llr
+// region holds nothing yet: its input and in-place descent go there.  The
+// frame's region then has no top row: 17,744 bytes at L = 8, 13 frames an
+// SM.
 template <bool kR1, int kLogN, int kL>
 __global__ void __launch_bounds__(32 * kMaxFrames)
 scl_decode_kernel(const float* __restrict__ ch_all,
@@ -201,19 +216,25 @@ scl_decode_kernel(const float* __restrict__ ch_all,
                   int8_t* __restrict__ u_out, float* __restrict__ pm_out,
                   int32_t* __restrict__ ties_out, int B, int n_arg, int L_arg,
                   int tm, int xw) {
+  constexpr bool kTopRegs = !kR1 && kLogN == 10;
   extern __shared__ __align__(16) uint8_t smem[];
   const int n = kLogN ? kLogN : n_arg, L = kL ? kL : L_arg;
   const int N = 1 << n, half = N >> 1, S2 = half - 1;
   const int W = N >= 32 ? N / 32 : 1, L2 = 2 * L;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int F = blockDim.x >> 5;
-  const Layout o = layout(n, L, kR1 ? tm : 0, kR1 ? xw : 0);
+  const Layout o = layout(n, L, kR1 ? tm : 0, kR1 ? xw : 0, kTopRegs);
   uint8_t* tab = smem;
   for (int i = threadIdx.x; i < N; i += blockDim.x) tab[i] = table[i];
   __syncthreads();
   uint8_t* fm = smem + up16(N) + size_t(warp) * o.total;
   float* llr = reinterpret_cast<float*>(fm + o.llr);
-  float* top = reinterpret_cast<float*>(fm + o.top);
+  // the stage n-1 row in shared memory, or (kTopRegs) the scratch of a node
+  // of stage >= n-1 at leaf 0
+  float* top = kTopRegs ? llr : reinterpret_cast<float*>(fm + o.top);
+  // kTopRegs: the lane's part of the stage n-1 row (N = 1024: its halves
+  // are 16 chunks of 32, stage n-2's w = 256 is 8)
+  float tr[32];
   uint32_t* bits = reinterpret_cast<uint32_t*>(fm + o.bits);
   uint64_t* ptrL = reinterpret_cast<uint64_t*>(fm + o.ptr);
   uint64_t* ptrB = ptrL + L;
@@ -246,9 +267,9 @@ scl_decode_kernel(const float* __restrict__ ch_all,
                     : (bits[row * W] >> ((1 << i) - 1 + e)) & 1;
     };
     // stage-i LLR element e of the path whose rows are rl (LLR) and rb
-    // (partial sums); i <= n - 1
+    // (partial sums); i <= n - 1, and i <= n - 2 under kTopRegs
     auto src_at = [&](int rl, int rb, int i, int e) -> float {
-      if (i == n - 1) {
+      if (!kTopRegs && i == n - 1) {
         return second && bit_at(rb, i, e) ? top[half + e] : top[e];
       }
       return llr[rl * S2 + (1 << i) - 1 + e];
@@ -336,7 +357,29 @@ scl_decode_kernel(const float* __restrict__ ch_all,
         }
         __syncwarp();
         // B. the g-node at stage t
-        if (t == n - 1) {
+        if (kTopRegs && t == n - 1) {
+          #pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const int e = lane + 32 * q;
+            const float up = ch[e], lo = ch[e + half];
+            tr[q] = lo + 1.f * up;
+            tr[16 + q] = lo + -1.f * up;
+          }
+        } else if (kTopRegs && t == n - 2) {
+          #pragma unroll 1
+          for (int k = 0; k < L; ++k) {
+            const int rb = field(ptrB[k], t + 1);
+            #pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const int e = lane + 32 * q;
+              const float up = second && bit_at(rb, n - 1, e) ? tr[16 + q] : tr[q];
+              const float lo =
+                  second && bit_at(rb, n - 1, e + 256) ? tr[24 + q] : tr[8 + q];
+              const float sgn = bit_at(k, t, e) ? -1.f : 1.f;
+              llr[k * S2 + 255 + e] = lo + sgn * up;
+            }
+          }
+        } else if (t == n - 1) {
           for (int e = lane; e < half; e += 32) {
             const float up = ch[e], lo = ch[e + half];
             top[e] = lo + 1.f * up;
@@ -357,7 +400,25 @@ scl_decode_kernel(const float* __restrict__ ch_all,
       }
       // f-nodes at stages t-1 .. s, each reading the path's own row
       for (int i = t - 1; i >= s; --i) {
-        if (i == n - 1) {
+        if (kTopRegs && i == n - 1 && s < n - 1) {
+          #pragma unroll
+          for (int q = 0; q < 16; ++q) {
+            const int e = lane + 32 * q;
+            tr[q] = chk(ch[e], ch[e + half]);
+          }
+        } else if (kTopRegs && i == n - 2) {
+          #pragma unroll 1
+          for (int k = 0; k < L; ++k) {
+            #pragma unroll
+            for (int q = 0; q < 8; ++q) {
+              const int e = lane + 32 * q;
+              const float up = second && bit_at(k, n - 1, e) ? tr[16 + q] : tr[q];
+              const float lo =
+                  second && bit_at(k, n - 1, e + 256) ? tr[24 + q] : tr[8 + q];
+              llr[k * S2 + 255 + e] = chk(up, lo);
+            }
+          }
+        } else if (i == n - 1) {  // (kTopRegs: the input of a node at leaf 0)
           for (int e = lane; e < half; e += 32) top[e] = chk(ch[e], ch[e + half]);
         } else {
           const int w = 1 << i;
@@ -730,6 +791,12 @@ Kernel kernel_for(int n, int L, int r1) {
   return r1 ? kernel_of<true>(n, L) : kernel_of<false>(n, L);
 }
 
+// Whether kernel_for(n, L, r1) keeps the stage n-1 row in registers (its
+// kTopRegs): the exact instantiations with n fixed at 10.
+bool top_regs(int n, int L, int r1) {
+  return !r1 && n == 10 && (L == 8 || L == 16 || L == 32);
+}
+
 // The launch shape at (n, L, tm, xw, mode) on the current device: frames
 // per block F (the most resident frames per SM, the fewest per block on a
 // tie), its blocks per SM and shared memory, cached per shape and device.
@@ -759,7 +826,8 @@ cudaError_t shape_of(int n, int L, int tm, int xw, int r1, Shape* out) {
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const Kernel kernel = kernel_for(n, L, r1);
-  const size_t frame = layout(n, L, tm, xw).total, tab = up16(size_t(1) << n);
+  const size_t frame = layout(n, L, tm, xw, top_regs(n, L, r1)).total;
+  const size_t tab = up16(size_t(1) << n);
   Shape best{dev, n, L, tm, xw, r1, 0, 0, sms, 0};
   for (int F = 1; F <= kMaxFrames; ++F) {
     const size_t bytes = tab + F * frame;
@@ -821,9 +889,29 @@ extern "C" int scl_decode_shape(int B, int N, int L, int tmax, int xwords,
   return 0;
 }
 
-// Bytes of shared memory one frame takes at (N, L, tmax, xwords).
+// Bytes of shared memory one frame takes at (N, L, tmax, xwords); xwords > 0
+// is the rate-1 flavor.
 extern "C" size_t scl_decode_frame_bytes(int N, int L, int tmax, int xwords) {
-  return layout(log2_of(N), L, tmax, xwords).total;
+  const int n = log2_of(N);
+  return layout(n, L, tmax, xwords, top_regs(n, L, xwords > 0)).total;
+}
+
+// The instantiation that decodes (N, L, mode): its registers per thread,
+// local memory per thread (non-zero when registers spill) and whether it
+// keeps the stage n-1 row in registers.  Returns the cudaError_t code.
+extern "C" int scl_decode_kernel_info(int N, int L, int r1, int* regs,
+                                      size_t* local_bytes, int* in_regs) {
+  if (!valid(1, N, L, r1 ? L - 1 : 0, r1 ? 1 : 0, r1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int n = log2_of(N);
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel_for(n, L, r1));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *regs = attr.numRegs;
+  *local_bytes = attr.localSizeBytes;
+  *in_regs = top_regs(n, L, r1);
+  return 0;
 }
 
 // ch: [B, N] f32; table: [N] u8, the node table of ops/scl_kernel.py (bit 0

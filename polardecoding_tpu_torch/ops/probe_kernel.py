@@ -18,7 +18,7 @@ import ctypes
 
 import torch
 
-from polardecoding_tpu_torch.ops import _build
+from polardecoding_tpu_torch.ops import _build, scl_kernel
 
 LAUNCHES = 0
 SOURCE = "polardecoding_tpu_torch/csrc/probe_floor.cu"
@@ -29,26 +29,36 @@ REPLACES = {"probe_floor": "scripts/probe_floor.py:77",
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10
 
 
-def scl_shape(B: int, N: int, list_size: int) -> dict:
+def scl_shape(B: int, N: int, list_size: int, tmax: int = 0,
+              xwords: int = 0) -> dict:
     """csrc/scl_decode.cu's launch shape for B frames at (N, L) in exact mode,
-    from the library's own scl_decode_shape: threads and blocks of the grid,
-    frames per block (a warp each), resident blocks per SM, the block's
-    dynamic shared memory and one frame's part of it."""
+    or in the rate-1 flavor with R1 scratch for tmax forks and xwords packed
+    words (xwords > 0), from the library's own scl_decode_shape and
+    scl_decode_kernel_info: threads and blocks of the grid, frames per block
+    (a warp each), resident blocks per SM and frames per SM, the block's
+    dynamic shared memory and one frame's part of it, and the
+    instantiation's registers and local memory per thread (spills) and
+    whether it keeps the stage n-1 row in registers."""
     lib = _build.load("scl_decode")
     threads, blocks, per_sm = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
     smem = ctypes.c_size_t()
-    rc = lib.scl_decode_shape(B, N, list_size, 0, 0, 0, ctypes.byref(threads),
-                              ctypes.byref(blocks), ctypes.byref(smem),
-                              ctypes.byref(per_sm))
+    r1 = int(xwords > 0)
+    rc = lib.scl_decode_shape(B, N, list_size, tmax, xwords, r1,
+                              ctypes.byref(threads), ctypes.byref(blocks),
+                              ctypes.byref(smem), ctypes.byref(per_sm))
     if rc != 0:
         raise _build.LaunchError(f"scl_decode_shape failed ({rc}) at B={B}, "
-                                 f"N={N}, L={list_size}")
+                                 f"N={N}, L={list_size}, tmax={tmax}, "
+                                 f"xwords={xwords}")
     frame = lib.scl_decode_frame_bytes
     frame.restype = ctypes.c_size_t
     return {"threads": threads.value, "blocks": blocks.value,
             "frames_per_block": threads.value // 32,
-            "blocks_per_sm": per_sm.value, "smem_bytes": smem.value,
-            "frame_bytes": int(frame(N, list_size, 0, 0))}
+            "blocks_per_sm": per_sm.value,
+            "frames_per_sm": threads.value // 32 * per_sm.value,
+            "smem_bytes": smem.value,
+            "frame_bytes": int(frame(N, list_size, tmax, xwords)),
+            **scl_kernel.kernel_info(N, list_size, r1)}
 
 
 def _check(ch, leaf, list_size, u_dtype, u_rows):

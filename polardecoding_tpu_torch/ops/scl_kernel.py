@@ -14,7 +14,10 @@ exactly as bit-by-bit SCL does; the flavor those of decompose(frozen, n, 0,
 wloop, r1) and its R1 nodes.
 
 `LAUNCHES` counts the exact mode's launches and `LAUNCHES_R1` the flavor's,
-so a run can show which of the two its main path went through.
+so a run can show which of the two its main path went through;
+`LAUNCHES_TOP_REGS` counts the exact launches whose instantiation keeps the
+stage n-1 LLR row in the warp's registers (N=1024 at L=8, 16 and 32, as
+the library's `kernel_info` reports), a part of `LAUNCHES`.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ from polardecoding_tpu_torch.ops import _build
 
 LAUNCHES = 0
 LAUNCHES_R1 = 0
+LAUNCHES_TOP_REGS = 0
 MAX_LIST = 32
 SOURCE = "polardecoding_tpu_torch/csrc/scl_decode.cu"
 REPLACES = "polardecoding_tpu/ops/pallas/scl_fast_kernel.py:866"
@@ -37,6 +41,32 @@ EXACT_WLOOP = 2
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
 # (id(frozen), r1, wloop) -> (frozen, its version, table, widest R1 node)
 _TABLES: dict = {}
+# (N, L, flavor) -> kernel_info
+_INFO: dict = {}
+
+
+def kernel_info(N: int, list_size: int, r1: int = 0) -> dict:
+    """The instantiation that decodes (N, list_size) in exact mode (r1=0) or
+    the rate-1 flavor, from the library's scl_decode_kernel_info: its
+    registers and local memory (spills) per thread, and whether it keeps
+    the stage n-1 row in registers (`top_regs`).  Cached per shape."""
+    key = (N, list_size, r1 > 0)
+    info = _INFO.get(key)
+    if info is None:
+        fn = _build.load("scl_decode").scl_decode_kernel_info
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int),
+                                            ctypes.POINTER(ctypes.c_size_t),
+                                            ctypes.POINTER(ctypes.c_int)]
+        regs, top, local = ctypes.c_int(), ctypes.c_int(), ctypes.c_size_t()
+        rc = fn(N, list_size, int(r1 > 0), ctypes.byref(regs),
+                ctypes.byref(local), ctypes.byref(top))
+        if rc != 0:
+            raise _build.LaunchError(f"scl_decode_kernel_info failed ({rc}) "
+                                     f"at N={N}, L={list_size}, r1={r1}")
+        info = _INFO[key] = {"registers": regs.value,
+                             "local_bytes": local.value,
+                             "top_regs": bool(top.value)}
+    return info
 
 
 def leaf_codes(frozen, r1: int = 0, wloop: int = EXACT_WLOOP) -> list[int]:
@@ -108,7 +138,7 @@ def scl_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor,
     when it is given.  Launches on the current stream without
     synchronising; raises on any input the kernel does not take and when
     the launch is refused."""
-    global LAUNCHES, LAUNCHES_R1
+    global LAUNCHES, LAUNCHES_R1, LAUNCHES_TOP_REGS
     if ch_llr.device.type != "cuda":
         raise ValueError(f"scl_decode_cuda needs a CUDA tensor, got {ch_llr.device}")
     if ch_llr.dtype != torch.float32:
@@ -150,4 +180,5 @@ def scl_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor,
         LAUNCHES_R1 += 1
     else:
         LAUNCHES += 1
+        LAUNCHES_TOP_REGS += kernel_info(N, L)["top_regs"]
     return u_all, PM, ties

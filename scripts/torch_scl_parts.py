@@ -13,9 +13,9 @@ four ways each, in turns:
                    its R1 nodes): what the node schedule buys;
   padded           a scratch copy of the source, built into
                    polardecoding_tpu_torch/_build/, whose launch gives each
-                   frame PADDED_FRAME_BYTES of shared memory, the old
-                   kernel's 50,564 (4 frames per SM instead of 10): what the
-                   smaller frame buys;
+                   frame PADDED_FRAME_BYTES of shared memory, the first
+                   kernel's 50,564 (4 frames per SM instead of 13 in exact
+                   mode, 10 in the flavor): what the smaller frame buys;
   padded_no_nodes  both.
 
 Each is the median of --reps CUDA-event timings of one launch after a
@@ -47,7 +47,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N, L, B, EBN0_DB, R1 = 1024, 8, 16384, 2.0, 4
 PADDED_FRAME_BYTES = 50564
-LAYOUT_TOTAL = "layout(n, L, tm, xw).total"
+LAYOUT_TOTAL = "layout(n, L, tm, xw, top_regs(n, L, r1)).total"
 # the phases: (name, the source line before which its counter stops); each
 # counter runs from the previous one (or the step's start)
 PHASES = (

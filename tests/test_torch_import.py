@@ -328,7 +328,9 @@ NODE_LISTS = (1, 2, 8, 16, 32)
 def _scl_card_case(N, L, r1, mask):
     """The list-decode kernel in one mode against the plain version on the
     card, through out= buffers filled with 90 (a store left out shows), and
-    the launch counted once in that mode's counter."""
+    the launch counted once in that mode's counter, and in
+    LAUNCHES_TOP_REGS where exact mode at N=1024, L in {8, 16, 32} holds
+    the stage n-1 row in registers."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
     from polardecoding_tpu_torch.models.scl import scl_decode
@@ -341,13 +343,17 @@ def _scl_card_case(N, L, r1, mask):
     out = (torch.full((32, L, N), 90, dtype=torch.int8, device="cuda"),
            torch.full((32, L), 90.0, device="cuda"),
            torch.full((32,), 90, dtype=torch.int32, device="cuda"))
-    launches = (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1)
+    launches = (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1,
+                scl_kernel.LAUNCHES_TOP_REGS)
     got = scl_kernel.scl_decode_cuda(llr, frozen, L, r1=r1, out=out)
     want = scl_decode(llr, frozen, list_size=L, return_all=True,
                       return_ties=True, r1=r1)
     torch.cuda.synchronize()
-    assert (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1) == (
-        launches[0] + (r1 == 0), launches[1] + (r1 > 0))
+    top_regs = r1 == 0 and N == 1024 and L in (8, 16, 32)
+    assert (scl_kernel.LAUNCHES, scl_kernel.LAUNCHES_R1,
+            scl_kernel.LAUNCHES_TOP_REGS) == (
+        launches[0] + (r1 == 0), launches[1] + (r1 > 0),
+        launches[2] + top_regs)
     assert all(g is o for g, o in zip(got, out))
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and g.shape == w.shape and (g == w).all()
@@ -378,6 +384,93 @@ def test_scl_r1_kernel_equals_plain_on_card(N, L, r1, mask):
     plain flavor (u_all, PM, ties) on every frame, for the same masks,
     counted once as a flavor launch and not as an exact one."""
     _scl_card_case(N, L, r1, mask)
+
+
+def _layout_with_top(N, L, tm, xw):
+    """One frame's bytes in csrc/scl_decode.cu's layout with the stage n-1
+    row in shared memory (the R1 flavor's and the generic instantiation's)."""
+    def up16(x):
+        return (x + 15) // 16 * 16
+
+    W = max(1, N // 32)
+    llr = max(4 * L * (N // 2 - 1), N * L)
+    bits = up16(up16(llr) + 4 * N)
+    cand = up16(up16(bits + 4 * (L + 1) * W) + 16 * L)
+    mins = up16(cand + 8 * L + 4 * L)
+    fl = mins + 4 * L * tm
+    pos = fl + (4 * L if xw else 0) + 4 * L * xw
+    return up16(pos + 2 * L * tm + L)
+
+
+@pytest.mark.cuda
+def test_scl_exact_kernel_residency_on_card():
+    """On a card: exact mode at N=1024 keeps the stage n-1 row in registers,
+    so a frame takes at most 17,744 bytes at L=8 and the occupancy query
+    puts 13, 6 and 3 frames on an SM at L=8, 16 and 32; the R1 flavor and
+    the instantiation for n and L at run time (N=128) keep the row in
+    shared memory, with today's frame bytes; no SCL instantiation spills
+    registers to local memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.ops.probe_kernel import scl_shape
+
+    for L, frames in ((8, 13), (16, 6), (32, 3)):
+        shape = scl_shape(16384, 1024, L)
+        assert shape["top_regs"] and shape["frames_per_sm"] == frames, shape
+        assert shape["frame_bytes"] == _layout_with_top(1024, L, 0, 0) - 4096
+        assert shape["local_bytes"] == 0, shape
+    assert scl_shape(16384, 1024, 8)["frame_bytes"] <= 17744
+    for N, L in ((1024, 8), (1024, 16), (1024, 32), (128, 8), (128, 2)):
+        r1 = scl_shape(4096, N, L, L - 1, max(1, N // 32))
+        assert not r1["top_regs"] and r1["local_bytes"] == 0, (N, L, r1)
+        assert r1["frame_bytes"] == _layout_with_top(N, L, L - 1, N // 32)
+    for N, L in ((128, 8), (128, 2), (1024, 4)):
+        shape = scl_shape(4096, N, L)
+        assert not shape["top_regs"] and shape["local_bytes"] == 0, shape
+        assert shape["frame_bytes"] == _layout_with_top(N, L, 0, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [8, 16])
+def test_scl_register_row_kernel_decodes_more_frames_than_slots(L):
+    """On a card: with more frames than resident warps (2 x SMs x 13 + 7),
+    each warp decodes several frames in turn and the register-row kernel
+    stays bit-equal to the plain version (5G mask); the launch counts in
+    LAUNCHES_TOP_REGS, which an L=2, an N=128 and an R1 launch leave as it
+    is."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from polardecoding_tpu_torch.models.scl import scl_decode
+    from polardecoding_tpu_torch.ops import scl_kernel
+    from polardecoding_tpu_torch.utils.sequences import frozen_mask
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B = 2 * sms * 13 + 7
+    rng = np.random.default_rng(B + L)
+    sigma = 10.0 ** (-2.0 / 20.0)
+    y = 1.0 + sigma * rng.normal(size=(B, 1024))
+    llr = torch.as_tensor((2.0 * y / sigma ** 2).astype(np.float32),
+                          device="cuda")
+    frozen = torch.as_tensor(frozen_mask(1024, 512), device="cuda")
+    out = (torch.full((B, L, 1024), 90, dtype=torch.int8, device="cuda"),
+           torch.full((B, L), 90.0, device="cuda"),
+           torch.full((B,), 90, dtype=torch.int32, device="cuda"))
+    before = scl_kernel.LAUNCHES_TOP_REGS
+    got = scl_kernel.scl_decode_cuda(llr, frozen, L, out=out)
+    want = scl_decode(llr, frozen, list_size=L, return_all=True,
+                      return_ties=True)
+    torch.cuda.synchronize()
+    assert scl_kernel.LAUNCHES_TOP_REGS == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape and (g == w).all()
+    small = llr[:64]
+    scl_kernel.scl_decode_cuda(small, frozen, 2)
+    scl_kernel.scl_decode_cuda(small[:, :128].contiguous(),
+                               torch.as_tensor(frozen_mask(128, 64),
+                                               device="cuda"), L)
+    scl_kernel.scl_decode_cuda(small, frozen, L, r1=4)
+    torch.cuda.synchronize()
+    assert scl_kernel.LAUNCHES_TOP_REGS == before + 1
 
 
 def _wave_inputs(N, B, seed):

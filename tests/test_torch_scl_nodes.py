@@ -3,7 +3,12 @@ CPU: the port's leaf nodes (models/scl_fast.nodes) are the leaves of the
 JAX package's decompose (ops/pallas/scl_fast_kernel.py), kind, stage and
 offset, and the kernel's per-leaf table (ops/scl_kernel.leaf_codes) encodes
 exactly those nodes, for the presets' masks and seeded random masks at
-r1 in {0, 4} and wloop in {2, 4}."""
+r1 in {0, 4} and wloop in {2, 4}; and the premises of the exact kernel's
+stage n-1 row in registers at N=1024: its table starts no node of stage
+>= n-1 after leaf 0, and the row's accesses are lane-local."""
+import os
+import re
+
 import numpy as np
 import pytest
 
@@ -109,3 +114,128 @@ def test_r1_stages_mark_the_tables_r1_nodes():
     assert stages == [(c >> 1) & 15 if c >> 5 == 3 else 0 for c in codes]
     assert all(c >> 5 in (0, 1, 2) for c in scl_kernel.leaf_codes(fr))
     assert tfast.r1_stages(fr, 0, 2) == [0] * len(fr)
+
+
+# the masks of the list-decode kernel's card tests at N=1024 (test_torch_import
+# _node_mask): one R0 node of width N, one REP node of width N, all info, two
+# ladders of R0 and REP nodes of every width from 512 to 2, a second half
+# that is one R0 or REP node
+def _card_node_masks():
+    j = np.arange(1024)
+    masks = {"all-frozen": j >= 0, "last-info": j < 1023, "all-info": j < 0}
+    for first in ("r0", "rep"):
+        kind, m = first, []
+        for s in range(9, 0, -1):
+            m += [True] * ((1 << s) - 1) + [kind == "r0"]
+            kind = "r0" if kind == "rep" else "rep"
+        masks[f"ladder_{first}"] = np.array(m + [False, False])
+    half = (np.random.default_rng(1).random(1024) < 0.5) | (j >= 512)
+    masks["half_r0"] = half
+    masks["half_rep"] = half & (j < 1023)
+    return masks
+
+
+TOP_MASKS = ([("preset", p) for p in PRESETS]
+             + [("node", m) for m in _card_node_masks()]
+             + [("random", s) for s in range(20)])
+
+
+def _top_mask(kind, what):
+    if kind == "preset":
+        return np.asarray(code_frozen_mask(jcfg.preset(what).code), bool)
+    if kind == "node":
+        return _card_node_masks()[what]
+    rng = np.random.default_rng(1000 + what)
+    return rng.random(1024) < rng.uniform(0.1, 0.9)
+
+
+@pytest.mark.parametrize("kind,what", TOP_MASKS)
+def test_exact_table_starts_wide_nodes_only_at_leaf_0(kind, what):
+    """Exact mode's table (r1 = 0) never starts a node of stage >= n-1 at a
+    leaf other than 0: the list-decode kernel that holds the stage n-1 row
+    in registers runs such a node, and the f-node that feeds it, in the
+    frame's llr region, which only leaf 0 leaves empty."""
+    frozen = _top_mask(kind, what)
+    N = len(frozen)
+    n = N.bit_length() - 1
+    codes = scl_kernel.leaf_codes(frozen)
+    wide = [j for j, c in enumerate(codes) if c >> 5 and (c >> 1) & 15 >= n - 1]
+    assert wide in ([], [0])
+    # a width-N/2 node at leaf N/2 is there, split in two, where the mask has one
+    if kind == "node" and what.startswith("half"):
+        assert (codes[N // 2] >> 1) & 15 == n - 2
+        assert (codes[3 * N // 4] >> 1) & 15 == n - 2
+
+
+SCL_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "polardecoding_tpu_torch", "csrc", "scl_decode.cu")
+
+
+def _generic_top_elements(L, stage, lane, second_bits):
+    """The stage n-1 row's elements that lane `lane` touches in the kernel's
+    generic loops at N=1024 (idx = lane + 32 it), in order: the stage n-1
+    g-node (writes g+ at e and g- at N/2 + e) and f-node (writes e), and
+    stage n-2's g- and f-nodes (path k = idx >> 8, e = idx & 255, reads
+    src_at(.., n-1, e) and (.., e + 256), g- where the path's partial-sum
+    bit is set after bit N/2)."""
+    half = 512
+    out = []
+    if stage == 9:
+        for e in range(lane, half, 32):
+            out.append(("g", e, half + e))
+    else:
+        for idx in range(lane, L << 8, 32):
+            k, e = idx >> 8, idx & 255
+            up = half + e if second_bits(k, e) else e
+            lo = half + e + 256 if second_bits(k, e + 256) else e + 256
+            out.append((k, up, lo))
+    return out
+
+
+def _register_top_elements(L, stage, lane, second_bits):
+    """The same accesses as the register-row loops make them (k rolled, the
+    chunk q unrolled): lane l's register m is element l + 32 m."""
+    out = []
+
+    def el(m):
+        return lane + 32 * m
+
+    if stage == 9:
+        for q in range(16):
+            out.append(("g", el(q), el(16 + q)))
+    else:
+        for k in range(L):
+            for q in range(8):
+                e = lane + 32 * q
+                up = el(16 + q) if second_bits(k, e) else el(q)
+                lo = el(24 + q) if second_bits(k, e + 256) else el(8 + q)
+                out.append((k, up, lo))
+    return out
+
+
+@pytest.mark.parametrize("L", [8, 16, 32])
+@pytest.mark.parametrize("stage", [9, 8])
+@pytest.mark.parametrize("second", [False, True])
+def test_register_row_is_lane_local(L, stage, second):
+    """The index rule of the register row at N=1024: every element of the
+    stage n-1 row that a stage n-1 or n-2 node reads or writes has the
+    lane's e mod 32, and the unrolled loops' registers (tr[q], tr[8 + q],
+    tr[16 + q], tr[24 + q]) name the elements the generic loops touch, in
+    the same order, for every pattern of partial-sum bits; the source
+    indexes tr with exactly those."""
+    rng = np.random.default_rng(L * 10 + stage + second)
+    bits = rng.random((L, 512)) < 0.5
+
+    def second_bits(k, e):
+        return second and bool(bits[k, e])
+
+    for lane in range(32):
+        want = _generic_top_elements(L, stage, lane, second_bits)
+        got = _register_top_elements(L, stage, lane, second_bits)
+        assert got == want
+        for _, *elements in want:
+            assert all(e % 32 == lane and 0 <= e < 1024 for e in elements)
+    with open(SCL_SOURCE) as f:
+        src = re.sub(r"//[^\n]*", "", f.read())
+    assert set(re.findall(r"\btr\[([^\]]+)\]", src)) == {
+        "q", "8 + q", "16 + q", "24 + q", "32"}
