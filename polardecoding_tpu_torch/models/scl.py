@@ -21,7 +21,10 @@ the new list is the candidate of rank k: parent = idx % L, bit = idx >= L.
 and tie counter.  `scl_decode_auto`, `sc_decode_auto` and `cascl_decode`
 send a CUDA tensor to the hand-written list-decode kernel
 (ops/scl_kernel.py) and a CPU tensor to the plain version; engine="plain"
-forces the plain version on any device.
+forces the plain version on any device.  `scl_decode_auto` opens the span
+`decode.list` around the list decode on both paths, with the counts of
+ops/scl_kernel.list_counts: r1, the R1 nodes of the node table and the
+bits they decide, and on the kernel path `frames_per_sm`.
 
 r1 > 0 selects the approximate bounded-fork rate-1 flavor of the TPU kernel
 (scl_decode_fast(r1=...)): each all-info block of width >= max(r1, 2) that
@@ -202,16 +205,20 @@ def scl_decode_auto(ch_llr: torch.Tensor, frozen: torch.Tensor,
                     return_ties: bool = False, engine: str = "auto",
                     r1: int = 0, wloop: int = 2):
     """SCL with the CUDA list-decode kernel for a CUDA tensor and the plain
-    version for a CPU tensor, exact (r1=0) or the rate-1 flavor on either;
-    same returns as `scl_decode`."""
-    if not use_kernel(ch_llr, engine, "scl_decode_auto"):
-        return scl_decode(ch_llr, frozen, list_size=list_size,
-                          return_all=return_all, return_ties=return_ties,
-                          r1=r1, wloop=wloop)
-    from polardecoding_tpu_torch.ops.scl_kernel import scl_decode_cuda
+    version for a CPU tensor, exact (r1=0) or the rate-1 flavor on either,
+    inside the span decode.list; same returns as `scl_decode`."""
+    from polardecoding_tpu_torch.ops import scl_kernel
 
-    u_all, PM, ties = scl_decode_cuda(ch_llr, frozen, list_size, r1=r1,
-                                      wloop=wloop)
+    kernel = use_kernel(ch_llr, engine, "scl_decode_auto")
+    with trace.span("decode.list", lazy=lambda: scl_kernel.list_counts(
+            frozen, list_size, r1, wloop, kernel)):
+        if kernel:
+            u_all, PM, ties = scl_kernel.scl_decode_cuda(
+                ch_llr, frozen, list_size, r1=r1, wloop=wloop)
+        else:
+            u_all, PM, ties = scl_decode(ch_llr, frozen, list_size=list_size,
+                                         return_all=True, return_ties=True,
+                                         r1=r1, wloop=wloop)
     if return_all:
         return (u_all, PM, ties) if return_ties else (u_all, PM)
     u_hat = _best(u_all, PM)

@@ -13,6 +13,11 @@ uses the R0 and REP nodes of decompose(frozen, n, 0, 2, 0), which decode
 exactly as bit-by-bit SCL does; the flavor those of decompose(frozen, n, 0,
 wloop, r1) and its R1 nodes.
 
+`list_counts` gives the counts of the span `decode.list` that
+models/scl.scl_decode_auto opens around the list decode: r1, the R1 nodes
+of the node table and the bits they decide, and on the kernel path the
+frames an SM of the launched instantiation (`frames_per_sm`).
+
 `LAUNCHES` counts the exact mode's launches and `LAUNCHES_R1` the flavor's,
 so a run can show which of the two its main path went through;
 `LAUNCHES_TOP_REGS` counts the exact launches whose instantiation keeps the
@@ -39,10 +44,13 @@ KINDS = {"r0": 1, "rep": 2, "r1": 3}
 EXACT_WLOOP = 2
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-# (id(frozen), r1, wloop) -> (frozen, its version, table, widest R1 node)
+# (id(frozen), r1, wloop) -> (frozen, its version, table, widest R1 node,
+# R1 nodes, their bits)
 _TABLES: dict = {}
 # (N, L, flavor) -> kernel_info
 _INFO: dict = {}
+# (N, L, tmax, xwords) -> frames an SM
+_FRAMES: dict = {}
 
 
 def kernel_info(N: int, list_size: int, r1: int = 0) -> dict:
@@ -94,18 +102,45 @@ def leaf_codes(frozen, r1: int = 0, wloop: int = EXACT_WLOOP) -> list[int]:
 
 
 def _leaf_table(frozen: torch.Tensor, r1: int, wloop: int):
-    """The node table on frozen's device and the widest R1 node's width,
-    cached per mask tensor, r1 and wloop: the mask is read back to the host
-    once, not at every call."""
+    """(the node table on frozen's device, the widest R1 node's width, the
+    R1 nodes, the bits they decide), cached per mask tensor, r1 and wloop:
+    the mask is read back to the host once, not at every call."""
     key = (id(frozen), r1, wloop)
     hit = _TABLES.get(key)
     if hit is None or hit[0] is not frozen or hit[1] != frozen._version:
         codes = leaf_codes(frozen.tolist(), r1, wloop)
         table = torch.tensor(codes, dtype=torch.uint8, device=frozen.device)
-        widest = max((1 << ((c >> 1) & 15) for c in codes
-                      if c >> 5 == KINDS["r1"]), default=0)
-        hit = _TABLES[key] = (frozen, frozen._version, table, widest)
-    return hit[2], hit[3]
+        widths = [1 << ((c >> 1) & 15) for c in codes if c >> 5 == KINDS["r1"]]
+        hit = _TABLES[key] = (frozen, frozen._version, table,
+                              max(widths, default=0), len(widths), sum(widths))
+    return hit[2:]
+
+
+def _r1_scratch(widest: int, list_size: int):
+    """(tmax, xwords): the forks and packed words of the R1 scratch for the
+    widest R1 node (0, 0 without one)."""
+    return min(list_size - 1, widest), max(1, widest // 32) if widest else 0
+
+
+def list_counts(frozen: torch.Tensor, list_size: int, r1: int = 0,
+                wloop: int = 2, kernel: bool = True) -> dict:
+    """The counts of the span decode.list: r1, `r1_nodes` and `r1_bits`, the
+    R1 nodes of the node table of (frozen, r1, wloop) and the bits they
+    decide (0 and 0 in exact mode), and with kernel=True `frames_per_sm`,
+    the frames an SM of the instantiation the launch takes, from the
+    library's occupancy query as probe_kernel.scl_shape makes it, cached
+    per shape."""
+    _, widest, nodes_, bits = _leaf_table(frozen, r1, wloop if r1 else EXACT_WLOOP)
+    out = {"r1": r1, "r1_nodes": nodes_, "r1_bits": bits}
+    if kernel:
+        key = (frozen.shape[0], list_size, *_r1_scratch(widest, list_size))
+        fps = _FRAMES.get(key)
+        if fps is None:
+            from polardecoding_tpu_torch.ops.probe_kernel import scl_shape
+
+            fps = _FRAMES[key] = scl_shape(1, *key)["frames_per_sm"]
+        out["frames_per_sm"] = fps
+    return out
 
 
 def _outputs(out, B: int, L: int, N: int, dev):
@@ -162,9 +197,8 @@ def scl_decode_cuda(ch_llr: torch.Tensor, frozen: torch.Tensor,
     u_all, PM, ties = _outputs(out, B, L, N, dev)
     if B == 0:
         return u_all, PM, ties
-    table, widest = _leaf_table(frozen, r1, wloop if r1 else EXACT_WLOOP)
-    tmax = min(L - 1, widest)
-    xwords = max(1, widest // 32) if widest else 0
+    table, widest, _, _ = _leaf_table(frozen, r1, wloop if r1 else EXACT_WLOOP)
+    tmax, xwords = _r1_scratch(widest, L)
     try:
         _build.launch("scl_decode", _ARGTYPES, dev, ch_llr.data_ptr(),
                       table.data_ptr(), u_all.data_ptr(), PM.data_ptr(),

@@ -5,6 +5,9 @@ counts, kept in memory.
     with trace.span("crc.h2d", bytes=M.nbytes):
         ...
 
+Counts that cost work to find are given through `lazy`, which is called
+only while tracing is on.
+
 Tracing is on inside `recording()` and whenever torch.profiler records
 (torch.autograd.profiler._is_profiler_enabled), so a profiled run of the
 port gets its spans.  Off, the default, `span` makes that one check and
@@ -108,12 +111,15 @@ class _Live:
         return False
 
 
-def span(name: str, anchor: bool = False, **counts):
+def span(name: str, anchor: bool = False, lazy=None, **counts):
     """A context manager that records the span `name` with `counts` while
     tracing is on; anchor=True opens it with a clock anchor while the
-    profiler records."""
+    profiler records.  lazy: a function that returns more counts, called
+    before the span opens and only while tracing is on."""
     if not (_recording or _profiler._is_profiler_enabled):
         return _OFF
+    if lazy is not None:
+        counts.update(lazy())
     return _Live(name, counts, anchor)
 
 

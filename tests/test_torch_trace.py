@@ -68,7 +68,8 @@ def test_each_point_is_one_tree(recorded):
     for step in (s for s in spans if s.name == "point.step"):
         assert [s.name for s in _children(spans, step)] == STEP_SPANS
         (dec,) = [s for s in _children(spans, step) if s.name == "step.decode"]
-        assert [s.name for s in _children(spans, dec)] == ["decode.crc_select"]
+        assert [s.name for s in _children(spans, dec)] == ["decode.list",
+                                                          "decode.crc_select"]
 
 
 def test_the_crc_matrices_are_copied_when_the_step_is_built_not_in_a_step(recorded):
@@ -160,7 +161,8 @@ def test_cli_run_trace_writes_a_chrome_trace(tmp_path, capsys):
     assert json.loads(capsys.readouterr().out)[0]["frames"] == BATCH
     events = json.loads(path.read_text())["traceEvents"]
     assert {e["name"] for e in events} == {"point", "point.step", "point.read",
-                                           "decode.crc_select", "crc.h2d", *STEP_SPANS}
+                                           "decode.list", "decode.crc_select",
+                                           "crc.h2d", *STEP_SPANS}
     assert all(e["ph"] == "X" and e["dur"] >= 0 and e["ts"] >= 0 for e in events)
     # run_sweep builds the step before its points: the CRC matrices' two
     # copies are spans of their own, every other span lies in a point
